@@ -1,0 +1,80 @@
+"""Carry network state and connectivity between the JAX package and the
+port as plain numpy arrays.
+
+In BCPNN the synaptic planes ARE the learned weights, so this is how a run
+of one package continues in the other, and how the tests start both from
+the same state. The array names are those that
+`tests/fixtures/capture_head.py:state_arrays` writes (``hcus_<field>``
+with ij planes (H*R, C) and i-vectors (H*R,), ``delay_rows``,
+``delay_count``, ``t``, ``drops_in``, ``drops_fire``), plus ``base_key``
+(two uint32 words) and ``drops_route``; the connectivity arrays are
+``conn_dest_hcu``, ``conn_dest_row`` and ``conn_delay``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import hcu as H
+from repro_torch.core import network as N
+from repro_torch.core.params import BCPNNParams
+
+_SCALARS = ("t", "drops_in", "drops_fire", "drops_route")
+
+
+def state_from_numpy(arrays, p: BCPNNParams, device) -> N.NetworkState:
+    """NetworkState from the JAX package's leaves as numpy arrays (a dict or
+    an npz file). ``drops_route`` defaults to 0 when absent. The flat shapes
+    are checked against ``p``."""
+    n = np.asarray(arrays["delay_rows"]).shape[0]
+    shapes = {f: (n * p.rows, p.cols) for f in ("zij", "eij", "pij", "wij", "tij")}
+    shapes.update({f: (n * p.rows,) for f in ("zi", "ei", "pi", "ti")})
+    shapes.update({f: (n, p.cols) for f in ("zj", "ej", "pj", "h")})
+    leaves = {}
+    for f in H.HCUState._fields:
+        a = np.asarray(arrays[f"hcus_{f}"])
+        if a.shape != shapes[f]:
+            raise ValueError(f"hcus_{f}: shape {a.shape}, expected {shapes[f]}")
+        dt = torch.int32 if f in ("tij", "ti") else torch.float32
+        leaves[f] = torch.tensor(a, dtype=dt, device=device)
+    tens = lambda k, dt: torch.tensor(np.asarray(arrays[k]), dtype=dt,
+                                      device=device)
+    route = arrays["drops_route"] if "drops_route" in arrays else 0
+    return N.NetworkState(
+        hcus=H.HCUState(**leaves),
+        delay_rows=tens("delay_rows", torch.int32),
+        delay_count=tens("delay_count", torch.int32),
+        t=tens("t", torch.int32), drops_in=tens("drops_in", torch.int32),
+        drops_fire=tens("drops_fire", torch.int32),
+        drops_route=torch.tensor(np.asarray(route), dtype=torch.int32,
+                                 device=device),
+        base_key=torch.tensor(np.asarray(arrays["base_key"]).astype(np.int64),
+                              device=device),
+    )
+
+
+def state_to_numpy(state: N.NetworkState) -> dict:
+    """The inverse of `state_from_numpy`: every leaf as a numpy array under
+    its JAX-side name, ``base_key`` as two uint32 words."""
+    out = {f"hcus_{f}": getattr(state.hcus, f).cpu().numpy()
+           for f in H.HCUState._fields}
+    out["delay_rows"] = state.delay_rows.cpu().numpy()
+    out["delay_count"] = state.delay_count.cpu().numpy()
+    for k in _SCALARS:
+        out[k] = getattr(state, k).cpu().numpy()
+    out["base_key"] = state.base_key.cpu().numpy().astype(np.uint32)
+    return out
+
+
+def conn_from_numpy(arrays, device) -> N.Connectivity:
+    """Connectivity from ``conn_dest_hcu``, ``conn_dest_row``, ``conn_delay``."""
+    t = lambda k: torch.tensor(np.asarray(arrays[k]), dtype=torch.int32,
+                               device=device)
+    return N.Connectivity(t("conn_dest_hcu"), t("conn_dest_row"),
+                          t("conn_delay"))
+
+
+def conn_to_numpy(conn: N.Connectivity) -> dict:
+    return {"conn_dest_hcu": conn.dest_hcu.cpu().numpy(),
+            "conn_dest_row": conn.dest_row.cpu().numpy(),
+            "conn_delay": conn.delay.cpu().numpy()}

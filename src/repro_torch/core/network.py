@@ -1,0 +1,197 @@
+"""Multi-HCU BCPNN network: state, spike queues, routing and the run loop
+(the port of `repro.core.network` for the local lazy worklist path).
+
+  * delay queue  — (H, max_delay, A) ring of buckets indexed by arrival
+                   tick; a spike with delay d lands in bucket (t+d) % D.
+                   Bucket capacity A is the paper's active-queue size;
+                   overflows are counted as drops (paper Fig 7).
+  * fanout       — static connectivity (dest_hcu, dest_row, delay) per MCU.
+  * column batching — only HCUs that fired pay for a column update; fired
+                   HCUs are compacted into a fixed-capacity batch.
+
+Every scatter that the JAX package writes with ``mode="drop"`` goes to a
+copy with one spare slot past the end, which takes the out-of-range writes
+and is cut off: CUDA indexing would fault on them instead. Nothing here
+reads a device value back to the host, so a tick never synchronises.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import hcu as H
+from repro_torch.core import rng
+from repro_torch.core.params import BCPNNParams
+
+
+class Connectivity(NamedTuple):
+    dest_hcu: torch.Tensor   # (H, C, F) int32
+    dest_row: torch.Tensor   # (H, C, F) int32
+    delay: torch.Tensor      # (H, C, F) int32, in [1, max_delay-1]
+
+
+class NetworkState(NamedTuple):
+    hcus: H.HCUState         # flat layout (see repro_torch.core.layout)
+    delay_rows: torch.Tensor  # (H, D, A) int32; empty slots == R
+    delay_count: torch.Tensor  # (H, D) int32
+    t: torch.Tensor          # () int32 current time (ms)
+    drops_in: torch.Tensor   # () int32 — delay-queue overflow drops
+    drops_fire: torch.Tensor  # () int32 — fired-batch overflow drops
+    base_key: torch.Tensor   # (2,) threefry key (repro_torch.core.rng)
+    jring: torch.Tensor | None = None   # merged-mode rings (not ported yet)
+    # () int32 — inter-device route-capacity drops; always 0 on one device.
+    # LAST field, as in the JAX package.
+    drops_route: torch.Tensor | None = None
+
+
+def drop_counters(state: NetworkState) -> dict:
+    """Cumulative spike-drop counters as a plain dict ({'in': delay-queue,
+    'fire': fired-batch, 'route': inter-device fabric overflows})."""
+    route = state.drops_route
+    return {"in": int(state.drops_in), "fire": int(state.drops_fire),
+            "route": 0 if route is None else int(route)}
+
+
+def make_connectivity(p: BCPNNParams, key, n_hcu: int | None = None) -> Connectivity:
+    """Random static fanout: each MCU projects to `fanout` (HCU, row) targets
+    with biological delays of mean ~`mean_delay` ms (truncated geometric).
+    The same draws as the JAX package's `make_connectivity`."""
+    n = n_hcu or p.n_hcu
+    k = rng.split(key, 3)
+    shape = (n, p.cols, p.fanout)
+    dest_hcu = rng.randint(k[0], shape, 0, n)
+    dest_row = rng.randint(k[1], shape, 0, p.rows)
+    lam = 1.0 / max(p.mean_delay - 1.0, 1e-3)
+    geo = torch.floor(torch.log1p(-rng.uniform(k[2], shape)) / -lam).to(torch.int32)
+    delay = torch.clamp(1 + geo, 1, p.max_delay - 1).to(torch.int32)
+    return Connectivity(dest_hcu, dest_row, delay)
+
+
+def init_network(p: BCPNNParams, key, n_hcu: int | None = None) -> NetworkState:
+    n = n_hcu or p.n_hcu
+    dev = key.device
+    D, A = p.max_delay, p.active_queue
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    return NetworkState(
+        hcus=H.init_hcu_batch(p, n, dev),
+        delay_rows=torch.full((n, D, A), p.rows, dtype=torch.int32, device=dev),
+        delay_count=torch.zeros((n, D), dtype=torch.int32, device=dev),
+        t=i32(0), drops_in=i32(0), drops_fire=i32(0), drops_route=i32(0),
+        base_key=rng.fold_in(key, 0x5EED),
+    )
+
+
+def _put_drop(flat, idx, val):
+    """`flat.at[idx].set(val, mode="drop")` on a 1-D tensor: writes whose
+    index is out of range land on a spare slot and are discarded. Returns a
+    new tensor."""
+    n = flat.shape[0]
+    buf = torch.cat([flat, flat.new_zeros(1)])
+    buf[torch.where((idx >= 0) & (idx < n), idx, n).long()] = val
+    return buf[:n]
+
+
+def _rank_within_key(keys: torch.Tensor) -> torch.Tensor:
+    """Rank of each element within its key group (stable: by position):
+    rank[i] == #{j < i : keys[j] == keys[i]}."""
+    M = keys.shape[0]
+    sorted_keys, order = torch.sort(keys, stable=True)
+    idx = torch.arange(M, device=keys.device)
+    is_first = torch.cat([torch.ones(1, dtype=torch.bool, device=keys.device),
+                          sorted_keys[1:] != sorted_keys[:-1]])
+    first_pos = torch.cummax(torch.where(is_first, idx, 0), dim=0).values
+    rank = torch.empty_like(idx)
+    rank[order] = idx - first_pos
+    return rank.to(keys.dtype)
+
+
+def consume_bucket(state: NetworkState, t, p: BCPNNParams):
+    """Read this tick's delay bucket (H, A) and clear it in the returned
+    state. ``t`` is the int32 time tensor; no host read."""
+    b = (t % p.max_delay).reshape(1).long()
+    bucket = torch.index_select(state.delay_rows, 1, b)[:, 0, :]
+    state = state._replace(
+        delay_rows=state.delay_rows.index_fill(1, b, p.rows),
+        delay_count=state.delay_count.index_fill(1, b, 0))
+    return state, bucket
+
+
+def enqueue_spikes(state: NetworkState, dest_h, dest_row, delay, valid,
+                   p: BCPNNParams, n_hcu: int):
+    """Insert a flat batch of spike messages into the delay queues.
+
+    Fixed-capacity slot allocation: messages are ranked within their
+    (dest_hcu, bucket) group; slot = current_count + rank; messages whose
+    slot exceeds the bucket capacity A are dropped and counted (Fig 7).
+    """
+    D, A = p.max_delay, p.active_queue
+    bucket = (state.t + delay) % D
+    hb = dest_h * D + bucket
+    key = torch.where(valid, hb, n_hcu * D)                 # invalid rank last
+    rank = _rank_within_key(key)
+    base = state.delay_count.reshape(-1)[hb.long()]
+    slot = base + rank
+    ok = valid & (slot < A)
+    flat_idx = torch.where(ok, hb * A + slot, n_hcu * D * A)
+    delay_rows = _put_drop(state.delay_rows.reshape(-1), flat_idx,
+                           dest_row).reshape(n_hcu, D, A)
+    arrivals = torch.zeros(n_hcu * D + 1, dtype=torch.int32,
+                           device=dest_h.device)
+    arrivals.index_add_(0, key.long(), valid.to(torch.int32))
+    arrivals = arrivals[:-1].reshape(n_hcu, D)
+    new_count = torch.clamp(state.delay_count + arrivals, max=A)
+    dropped = torch.sum(state.delay_count + arrivals - new_count)
+    return state._replace(delay_rows=delay_rows, delay_count=new_count,
+                          drops_in=(state.drops_in + dropped).to(torch.int32))
+
+
+def select_fired(fired: torch.Tensor, cap: int):
+    """Compact fired HCU indices (fired[h] >= 0) into `cap` slots; padding
+    slots carry h_idx == n. Returns (h_idx, j_idx, n_dropped)."""
+    n = fired.shape[0]
+    is_fired = fired >= 0
+    order = torch.argsort((~is_fired).to(torch.int32), stable=True)
+    idx = order[:cap]
+    sel_valid = is_fired[idx]
+    h_idx = torch.where(sel_valid, idx, n)
+    j_idx = torch.where(sel_valid, fired[idx], 0)
+    n_dropped = torch.sum(is_fired) - torch.sum(sel_valid)
+    return h_idx.to(torch.int32), j_idx.to(torch.int32), n_dropped.to(torch.int32)
+
+
+def network_run(state: NetworkState, conn: Connectivity, ext: torch.Tensor,
+                p: BCPNNParams, *, cap_fire: int | None = None,
+                worklist: bool | None = None):
+    """Run len(ext) ticks: ext (T, H, A_ext) int32 pre-staged external
+    spikes, consumed by ticks t0+1 .. t0+T. Returns (state', fired (T, H)
+    int32). A Python loop over `engine.tick` with the backend that
+    `engine.select_backend` picks; the ij planes and i-vectors of
+    ``state`` are updated in place."""
+    from repro_torch.core import engine as E
+    be = E.select_backend(p, worklist=worklist)
+    n = state.delay_rows.shape[0]
+    if ext.shape[0] == 0:
+        return state, torch.zeros((0, n), dtype=torch.int32, device=ext.device)
+    hist = []
+    for e in ext:
+        state, fired = E.tick(state, conn, e, p, be, cap_fire)
+        hist.append(fired)
+    return state, torch.stack(hist)
+
+
+def stage_external(ext, n_ticks: int | None = None, t0: int = 0,
+                   device=None) -> torch.Tensor:
+    """Stage external input as the dense (T, H, A_ext) int32 tensor that
+    `network_run` consumes. `ext` is an array or tensor, an iterable of
+    (H, A_ext) frames, or a callable ext_fn(t) sampled at t0+1 .. t0+n_ticks."""
+    if callable(ext):
+        if n_ticks is None:
+            raise ValueError("n_ticks required with a callable")
+        ext = [ext(t0 + 1 + k) for k in range(n_ticks)]
+    if isinstance(ext, np.ndarray):
+        ext = torch.from_numpy(ext)
+    elif not torch.is_tensor(ext):
+        ext = torch.from_numpy(np.stack([np.asarray(e) for e in ext]))
+    return ext.to(device=device, dtype=torch.int32)

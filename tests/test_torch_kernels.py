@@ -1,0 +1,308 @@
+"""The port's worklist row and column updates against the JAX package.
+
+* On the CPU, `repro_torch.kernels.ops.fused_row_update` /
+  `fused_col_update` (their plain PyTorch versions) against the JAX
+  `ops.fused_row_update` / `ops.fused_col_update` Pallas kernels in
+  interpret mode at a 4x64x16 size, and against the JAX cell oracle
+  (`bcpnn_ref.row_update_ref` / `col_update_ref`) at rodent width
+  (R=1200, C=70). The JAX side runs in a child process.
+* On a CUDA device (skipped without one), each CUDA kernel against its
+  plain version on the same inputs.
+* The device decides the path: a non-CPU tensor never reaches the plain
+  version.
+
+Tolerance: integers exactly; floats rtol=1e-5, atol=1e-6, the weight
+plane and weight rows atol=1e-5 (w = log(...) passes through zero, where
+an ulp of the argument is a large relative error). XLA:CPU and torch
+evaluate exp/log with different float32 approximations; the measured gaps
+are far inside these bounds (z, e, p within a few ulp).
+"""
+import numpy as np
+import pytest
+import torch
+
+from torch_jax_ref import run_jax
+from repro_torch.core import hcu as TH
+from repro_torch.core.params import BCPNNParams
+from repro_torch.kernels import bcpnn_update as BU
+from repro_torch.kernels import ops
+
+NOW = 50
+SMALL = dict(n=4, R=64, C=16, A=8)
+RODENT = dict(n=4, R=1200, C=70, A=24)
+ROW_PLANES = ("zij", "eij", "pij", "wij", "tij", "zi", "ei", "pi", "ti")
+COL_PLANES = ("zij", "eij", "pij", "wij", "tij")
+
+
+def _planes(rs, n, R, C):
+    HR = n * R
+    return dict(
+        zij=rs.uniform(0, 2, (HR, C)).astype(np.float32),
+        eij=rs.uniform(0, 0.5, (HR, C)).astype(np.float32),
+        pij=rs.uniform(1e-5, 0.05, (HR, C)).astype(np.float32),
+        wij=rs.normal(size=(HR, C)).astype(np.float32),
+        tij=rs.integers(0, NOW + 1, (HR, C)).astype(np.int32),
+        zi=rs.uniform(0, 2, HR).astype(np.float32),
+        ei=rs.uniform(0, 0.5, HR).astype(np.float32),
+        pi=rs.uniform(1e-4, 0.1, HR).astype(np.float32),
+        ti=rs.integers(0, NOW + 1, HR).astype(np.int32))
+
+
+def row_inputs(seed, n, R, C, A):
+    """Slot-ordered worklist: per HCU a few unique rows (HCU n-1 holds the
+    plane's last row), the rest sentinel slots (H*R)."""
+    rs = np.random.default_rng(seed)
+    HR, W = n * R, n * A
+    rows = np.full(W, HR, np.int32)
+    for h in range(n):
+        k = rs.integers(1, A)
+        r = np.sort(rs.choice(R, size=k, replace=False))
+        if h == n - 1:
+            r[-1] = R - 1
+        rows[h * A:h * A + k] = h * R + r
+    valid = rows < HR
+    d = _planes(rs, n, R, C)
+    d.update(
+        rows=rows,
+        counts=np.where(valid, rs.integers(1, 4, W), 0).astype(np.float32),
+        zj=rs.uniform(0, 2, (W, C)).astype(np.float32),
+        p_i=rs.uniform(1e-4, 0.1, W).astype(np.float32),
+        pj=rs.uniform(1e-4, 0.1, (W, C)).astype(np.float32),
+        zi_new=rs.uniform(0, 3, W).astype(np.float32),
+        ei_new=rs.uniform(0, 0.5, W).astype(np.float32),
+        pi_new=rs.uniform(1e-4, 0.1, W).astype(np.float32))
+    return d
+
+
+def col_inputs(seed, n, R, C, K=4):
+    """Fired batch: HCU n-1 at the last column, HCU 0 at column 3, then
+    padding entries (h == n)."""
+    rs = np.random.default_rng(seed)
+    d = _planes(rs, n, R, C)
+    d.update(h_idx=np.array([n - 1, 0] + [n] * (K - 2), np.int32),
+             j_idx=np.array([C - 1, 3] + [0] * (K - 2), np.int32),
+             zi_t=rs.uniform(0, 3, (K, R)).astype(np.float32),
+             p_i=rs.uniform(1e-4, 0.1, (K, R)).astype(np.float32),
+             pj_sc=rs.uniform(1e-4, 0.1, K).astype(np.float32))
+    return d
+
+
+def prefixed(d, pre):
+    return {f"{pre}_{k}": v for k, v in d.items()}
+
+
+_JAX_BODY = """
+from repro.core.hcu import coeffs_ij
+from repro.core.params import BCPNNParams
+from repro.kernels import ops, bcpnn_ref
+k, eps = coeffs_ij(BCPNNParams()), BCPNNParams().eps
+NOW = jnp.int32(IN["now"])
+ROW = ("zij", "eij", "pij", "wij", "tij", "zi", "ei", "pi", "ti")
+COL = ("zij", "eij", "pij", "wij", "tij")
+
+def arg(pre):
+    return {n[len(pre) + 1:]: jnp.asarray(v) for n, v in IN.items()
+            if n.startswith(pre + "_")}
+
+# Pallas kernels in interpret mode at the small size
+a = arg("srow")
+flats, ivecs, wrow = ops.fused_row_update(
+    *(a[f] for f in ROW), rows=a["rows"], now=NOW, counts=a["counts"],
+    zj=a["zj"], p_i=a["p_i"], pj=a["pj"], zi_new=a["zi_new"],
+    ei_new=a["ei_new"], pi_new=a["pi_new"], coeffs=k, eps=eps,
+    backend="pallas_interpret")
+for f, v in zip(ROW, (*flats, *ivecs)):
+    OUT[f"srow_{f}"] = v
+OUT["srow_wrow"] = wrow
+a = arg("scol")
+flats = ops.fused_col_update(
+    *(a[f] for f in COL), h_idx=a["h_idx"], j_idx=a["j_idx"], now=NOW,
+    zi_t=a["zi_t"], p_i=a["p_i"], pj_sc=a["pj_sc"], coeffs=k, eps=eps,
+    n_hcu=int(IN["small_n"]), rows=int(IN["small_R"]),
+    backend="pallas_interpret")
+for f, v in zip(COL, flats):
+    OUT[f"scol_{f}"] = v
+
+# the cell oracle at rodent width, one (1, C) row / (R,) column per entry
+a = {n: np.array(v) for n, v in arg("rrow").items()}
+HR, C = a["zij"].shape
+sel = np.nonzero(a["rows"] < HR)[0]
+r = a["rows"][sel]
+z1, e1, p1, w1, t1 = jax.vmap(
+    lambda z, e, p, t, c, zj, pi, pj: bcpnn_ref.row_update_ref(
+        z[None], e[None], p[None], t[None], NOW, c[None], zj, pi[None], pj,
+        k, eps))(*(jnp.asarray(a[f][r]) for f in ("zij", "eij", "pij", "tij")),
+                 *(jnp.asarray(a[f][sel]) for f in ("counts", "zj", "p_i", "pj")))
+for f, v in zip(("zij", "eij", "pij", "wij", "tij"), (z1, e1, p1, w1, t1)):
+    a[f][r] = np.asarray(v)[:, 0]
+a["zi"][r], a["ei"][r], a["pi"][r] = a["zi_new"][sel], a["ei_new"][sel], a["pi_new"][sel]
+a["ti"][r] = int(IN["now"])
+wrow = np.zeros((a["rows"].shape[0], C), np.float32)
+wrow[sel] = np.asarray(w1)[:, 0]
+for f in ROW:
+    OUT[f"rrow_{f}"] = a[f]
+OUT["rrow_wrow"] = wrow
+
+a = {n: np.array(v) for n, v in arg("rcol").items()}
+n_hcu, R = int(IN["rodent_n"]), int(IN["rodent_R"])
+sel = np.nonzero(a["h_idx"] < n_hcu)[0]
+ri = a["h_idx"][sel, None] * R + np.arange(R)[None, :]
+ci = np.broadcast_to(a["j_idx"][sel, None], ri.shape)
+outs = jax.vmap(
+    lambda z, e, p, t, zi, pi, pj: bcpnn_ref.col_update_ref(
+        z, e, p, t, NOW, zi, pi, pj, k, eps))(
+    *(jnp.asarray(a[f][ri, ci]) for f in ("zij", "eij", "pij", "tij")),
+    *(jnp.asarray(a[f][sel]) for f in ("zi_t", "p_i", "pj_sc")))
+for f, v in zip(COL, outs):
+    a[f][ri, ci] = np.asarray(v)
+for f in COL:
+    OUT[f"rcol_{f}"] = a[f]
+"""
+
+
+@pytest.fixture(scope="module")
+def cases():
+    ins = {"srow": row_inputs(1, **SMALL),
+           "scol": col_inputs(2, SMALL["n"], SMALL["R"], SMALL["C"]),
+           "rrow": row_inputs(3, **RODENT),
+           "rcol": col_inputs(4, RODENT["n"], RODENT["R"], RODENT["C"], K=3)}
+    flat = {"now": np.int32(NOW), "small_n": SMALL["n"], "small_R": SMALL["R"],
+            "rodent_n": RODENT["n"], "rodent_R": RODENT["R"]}
+    for pre, d in ins.items():
+        flat.update(prefixed(d, pre))
+    return ins, run_jax(_JAX_BODY, flat)
+
+
+def _t(d, device="cpu"):
+    return {k: torch.from_numpy(np.array(v)).to(device) for k, v in d.items()}
+
+
+def run_row(d, device="cpu", fn=None):
+    a = _t(d, device)
+    p = BCPNNParams()
+    wrow = (fn or ops.fused_row_update)(
+        *(a[f] for f in ROW_PLANES), a["rows"], torch.tensor(NOW, dtype=torch.int32, device=device),
+        a["counts"], a["zj"], a["p_i"], a["pj"], a["zi_new"], a["ei_new"],
+        a["pi_new"], TH.coeffs_ij(p), p.eps)
+    out = {f: a[f] for f in ROW_PLANES}
+    out["wrow"] = wrow
+    return out
+
+
+def run_col(d, n, R, device="cpu", fn=None):
+    a = _t(d, device)
+    p = BCPNNParams()
+    (fn or ops.fused_col_update)(
+        *(a[f] for f in COL_PLANES), a["h_idx"], a["j_idx"],
+        torch.tensor(NOW, dtype=torch.int32, device=device), a["zi_t"],
+        a["p_i"], a["pj_sc"], TH.coeffs_ij(p), p.eps, n, R)
+    return {f: a[f] for f in COL_PLANES}
+
+
+def assert_outputs(got, want, names):
+    for f in names:
+        g = got[f].cpu().numpy() if torch.is_tensor(got[f]) else got[f]
+        w = want[f]
+        if g.dtype.kind == "i":
+            np.testing.assert_array_equal(g, w, err_msg=f)
+        else:
+            atol = 1e-5 if f in ("wij", "wrow") else 1e-6
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=atol, err_msg=f)
+
+
+@pytest.fixture(autouse=True)
+def _flush_denormal():
+    # XLA flushes denormals to zero; torch on the CPU keeps them unless told.
+    # The mode is per process and off by default: switch it back off so the
+    # tests that share this worker see the default.
+    torch.set_flush_denormal(True)
+    yield
+    torch.set_flush_denormal(False)
+
+
+@pytest.mark.parametrize("case", ["srow", "rrow"])
+def test_fused_row_update_matches_jax(cases, case):
+    ins, ref = cases
+    got = run_row(ins[case])
+    want = {f: ref[f"{case}_{f}"] for f in (*ROW_PLANES, "wrow")}
+    assert_outputs(got, want, (*ROW_PLANES, "wrow"))
+    # sentinel slots emit zero weight rows and leave every plane row alone
+    assert not got["wrow"][ins[case]["rows"] >= ins[case]["zij"].shape[0]].any()
+
+
+@pytest.mark.parametrize("case", ["scol", "rcol"])
+def test_fused_col_update_matches_jax(cases, case):
+    ins, ref = cases
+    dims = SMALL if case == "scol" else RODENT
+    got = run_col(ins[case], dims["n"], dims["R"])
+    assert_outputs(got, {f: ref[f"{case}_{f}"] for f in COL_PLANES}, COL_PLANES)
+    # only the valid entries' columns changed
+    changed = (got["tij"].numpy() != ins[case]["tij"]).any(axis=0)
+    assert changed.sum() <= 2
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [SMALL, RODENT], ids=["small", "rodent"])
+def test_cuda_row_kernel_matches_plain(dims):
+    dev = _cuda()
+    d = row_inputs(5, **dims)
+    before = BU.launches["fused_row_update"]
+    got = run_row(d, dev, BU.fused_row_update_kernel)
+    torch.cuda.synchronize()
+    assert BU.launches["fused_row_update"] == before + 1
+    want = run_row(d, dev, BU.fused_row_update_plain)
+    assert_outputs(got, {k: v.cpu().numpy() for k, v in want.items()},
+                   (*ROW_PLANES, "wrow"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [SMALL, RODENT], ids=["small", "rodent"])
+def test_cuda_col_kernel_matches_plain(dims):
+    dev = _cuda()
+    d = col_inputs(6, dims["n"], dims["R"], dims["C"])
+    got = run_col(d, dims["n"], dims["R"], dev, BU.fused_col_update_kernel)
+    torch.cuda.synchronize()
+    want = run_col(d, dims["n"], dims["R"], dev, BU.fused_col_update_plain)
+    assert_outputs(got, {k: v.cpu().numpy() for k, v in want.items()},
+                   COL_PLANES)
+
+
+def _no_plain(monkeypatch):
+    def plain(*a, **k):
+        raise AssertionError("a non-CPU tensor reached the plain version")
+    monkeypatch.setattr(BU, "fused_row_update_plain", plain)
+    monkeypatch.setattr(BU, "fused_col_update_plain", plain)
+
+
+def test_non_cpu_tensors_never_take_the_plain_path(monkeypatch):
+    """Tensors on the meta device go to the kernel wrapper, which refuses
+    them; the plain version is never called."""
+    _no_plain(monkeypatch)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        run_row(row_inputs(7, **SMALL), "meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        run_col(col_inputs(8, SMALL["n"], SMALL["R"], SMALL["C"]),
+                SMALL["n"], SMALL["R"], "meta")
+
+
+@pytest.mark.cuda
+def test_cuda_launch_failure_propagates(monkeypatch):
+    """On CUDA tensors ops launches the kernel or raises: a failing
+    launcher's error reaches the caller, with no retry on the plain path."""
+    dev = _cuda()
+    _no_plain(monkeypatch)
+
+    def broken():
+        raise RuntimeError("launcher unavailable")
+    monkeypatch.setattr(BU, "_lib", broken)
+    with pytest.raises(RuntimeError, match="launcher unavailable"):
+        run_row(row_inputs(9, **SMALL), dev)
+    with pytest.raises(RuntimeError, match="launcher unavailable"):
+        run_col(col_inputs(10, SMALL["n"], SMALL["R"], SMALL["C"]),
+                SMALL["n"], SMALL["R"], dev)
