@@ -1,7 +1,9 @@
 """BCPNN core of the port: parameters, traces, threefry RNG, HCU state, the
-flat layout, the worklist, the network queues and the tick engine."""
+flat layout, the worklist, the network queues, the eager reference and the
+tick engine."""
 from repro_torch.core.params import BCPNNParams, human_scale, rodent_scale, test_scale
-from repro_torch.core.engine import Simulator, WorklistBackend, select_backend, tick
+from repro_torch.core.engine import (DenseBackend, Simulator, WorklistBackend,
+                                     select_backend, tick)
 from repro_torch.core.network import (Connectivity, NetworkState, init_network,
                                       make_connectivity, network_run,
-                                      stage_external)
+                                      network_tick, run, stage_external)

@@ -1,39 +1,53 @@
-"""The lazy BCPNN tick on the worklist backend (the port of the
-`repro.core.engine` path that `select_backend` takes at rodent and human
-widths).
+"""The BCPNN tick engine: one tick pipeline behind two plane backends (the
+port of `repro.core.engine`).
 
 A network tick has one skeleton
 
     consume delay bucket -> plane update (rows / WTA / columns) -> fan out
 
-and the plane update is the `WorklistBackend`: one network-global
-deduplicated worklist over the flat (H*R, C) planes per tick, the row
-phase as one `ops.fused_row_update` launch, the soft WTA, and the column
-phase as one `ops.fused_col_update` launch. The ij planes and i-vectors
-are rewritten in place by those two calls; everything else in the tick is
-plain torch on small tensors.
+and only the plane update differs by backend:
 
-The tick reads no device value on the host (no `.item()`, no `int()` of
-a tensor, no boolean-mask indexing): the current time stays a device
-tensor that the kernels read through a pointer, and the column launch
-runs every tick, its padding entries exiting at once where the JAX package
-gates the pass with `lax.cond`. A chunk of ticks can therefore later be
-captured in one CUDA graph.
+  * `WorklistBackend` — rodent/human scales: one network-global
+    deduplicated worklist over the flat (H*R, C) planes per tick. Its row
+    phase is one `ops.fused_row_update` launch (``fused``, the default) or
+    one `ops.worklist_row_update` launch plus the i-vector writes; its
+    column phase one `ops.fused_col_update` launch (``fused_cols``) or the
+    gathered-column `ops.col_update` of `column_updates_batched`.
+  * `DenseBackend` — toy sizes: every HCU at once on the batched
+    (H, R, C) view of the same storage; mode "lazy" (one `ops.row_update`
+    launch over the gathered (H, A, C) row blocks, then the same column
+    step) or "eager" (the dense golden model, `reference.eager_tick`).
+
+`select_backend` picks by the JAX package's size guard (`hcu.use_worklist`);
+the flags force either. Every combination gives the trajectory of the JAX
+package's backend with the same flags.
+
+The ij planes and i-vectors are rewritten in place. The tick reads no
+device value on the host (no `.item()`, no `int()` of a tensor, no
+boolean-mask indexing): the current time stays a device tensor that the
+kernels read through a pointer, the column step runs every tick, its
+padding entries writing nothing, where the JAX package gates the pass with
+`lax.cond`, and JAX's drop-mode scatters are redirected in range
+(`hcu.put_drop`). A chunk of ticks can therefore later be captured in one
+CUDA graph. Only the host-loop driver (`Simulator.run_host`) reads the
+time back each tick, as the JAX one does.
 
 `Simulator` is the user-facing facade. Its tensors live on ``device``:
 CUDA unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core import hcu as H
 from repro_torch.core import layout as L
 from repro_torch.core import network as N
+from repro_torch.core import reference
 from repro_torch.core import rng
 from repro_torch.core import worklist as WL
 from repro_torch.core.params import BCPNNParams
-from repro_torch.core.traces import ZEP, decay_zep
 from repro_torch.kernels import ops
 
 
@@ -52,14 +66,73 @@ def resolve_device(device=None) -> torch.device:
 # plane-update building blocks
 # ---------------------------------------------------------------------------
 
-def _bump_zj(zj, h_idx, j_idx, n: int):
+def _fired_mask(h_idx, j_idx, n: int, cols: int):
+    """(H, C) mask of this tick's fired (hcu, column) cells; padding
+    h_idx == n never matches arange(n)."""
+    dev = h_idx.device
+    return torch.any(
+        (h_idx[:, None, None] == torch.arange(n, device=dev)[None, :, None])
+        & (j_idx[:, None, None] == torch.arange(cols, device=dev)[None, None, :]),
+        dim=0)
+
+
+def _bump_zj(zj, h_idx, j_idx, n: int, p: BCPNNParams):
     """Postsynaptic Z increment (+1.0) at the fired batch's (h, j) cells;
-    padding entries (h_idx == n) are dropped. Returns a new tensor."""
+    padding entries (h_idx == n) are dropped. Returns a new tensor. Two
+    branches with the same bits, as in the JAX package: a mask of the
+    fired cells while it is small, else a one-slot-spare index fill."""
     C = zj.shape[1]
+    if n * p.rows * p.cols <= H.DENSE_CELLS_MAX:
+        return torch.where(_fired_mask(h_idx, j_idx, n, C), zj + 1.0, zj)
     idx = torch.where(h_idx < n, h_idx * C + j_idx, n * C).long()
     bump = torch.zeros(n * C + 1, dtype=zj.dtype, device=zj.device)
     bump.index_fill_(0, idx, 1.0)
     return zj + bump[:n * C].reshape(n, C)
+
+
+def column_updates_batched(hcus: H.HCUState, h_idx, j_idx, now,
+                           p: BCPNNParams) -> H.HCUState:
+    """Lazy column updates for the compacted fired batch, on the BATCHED
+    (H, R, C) view. h_idx (K,): HCU indices (== H for padding, whose writes
+    are dropped); j_idx (K,): the fired column of each entry.
+
+    Gathers exactly the K (R,)-columns that fired and their i-vectors,
+    updates them with one `ops.col_update` launch and writes them back in
+    place (`hcu.put_drop`: padding entries repeat entry 0, or rewrite their
+    own old cells on a tick where nothing fired). Returns hcus with the
+    bumped Zj."""
+    n = hcus.zij.shape[0]
+    R = p.rows
+    C = hcus.zij.shape[2]
+    safe_h = torch.clamp(h_idx, max=n - 1).long()
+    jl = j_idx.long()
+    # flat cell index of every (entry, row) of the fired columns, (K, R)
+    cell = ((safe_h[:, None] * R + torch.arange(R, device=h_idx.device))
+            * C + jl[:, None])
+    planes = tuple(getattr(hcus, f).reshape(-1)
+                   for f in ("zij", "eij", "pij", "wij", "tij"))
+    old = tuple(pl[cell] for pl in planes)
+    # i-vector traces brought to `now` (values only, no writeback)
+    zep_i = H.ivec_decay(hcus.zi[safe_h], hcus.ei[safe_h], hcus.pi[safe_h],
+                         hcus.ti[safe_h], now, p)
+    pj_sc = hcus.pj[safe_h, jl]                                   # (K,)
+    z1, e1, p1, w1, t1 = ops.col_update(
+        old[0], old[1], old[2], old[4], now, zep_i.z, zep_i.p, pj_sc,
+        H.coeffs_ij(p), p.eps)
+    # the fired batch is one group of the drop-mode scatter
+    redirect = H.drop_redirect(cell[None], (h_idx < n)[None])
+    for pl, v_new, v_old in zip(planes, (z1, e1, p1, w1, t1), old):
+        H.put_drop(pl, v_new, v_old, redirect)
+    return hcus._replace(zj=_bump_zj(hcus.zj, h_idx, j_idx, n, p))
+
+
+def _column_batched_on_flat(hcus: H.HCUState, h_idx, j_idx, now,
+                            p: BCPNNParams, n: int) -> H.HCUState:
+    """`column_updates_batched` on the flat planes through the zero-copy
+    batched view (the unfused column step of the worklist backend)."""
+    hb = column_updates_batched(L.batched_state(hcus, n), h_idx, j_idx, now,
+                                p)
+    return L.flat_state(hb)
 
 
 def _row_worklist_common(hcus: H.HCUState, rows, t, p: BCPNNParams):
@@ -68,48 +141,65 @@ def _row_worklist_common(hcus: H.HCUState, rows, t, p: BCPNNParams):
     intermediates; the i-vector values are (H, A), indexed by slot."""
     n, A = rows.shape
     R = p.rows
-    zep_j = decay_zep(ZEP(hcus.zj, hcus.ej, hcus.pj), p.dt_ms, H.coeffs_j(p))
-    hcus = hcus._replace(zj=zep_j.z, ej=zep_j.e, pj=zep_j.p)
+    hcus = H._decay_jvec(hcus, p)
     rows_u, counts = H.dedup_rows(rows, R)
     safe = torch.clamp(rows_u, max=R - 1).long()
     g_safe = torch.arange(n, device=rows.device)[:, None] * R + safe  # (H, A)
-    zep_i = H.ivec_decay(hcus.zi[g_safe], hcus.ei[g_safe], hcus.pi[g_safe],
-                         hcus.ti[g_safe], t, p)
+    iv_old = tuple(getattr(hcus, f)[g_safe] for f in ("zi", "ei", "pi", "ti"))
+    zep_i = H.ivec_decay(*iv_old, t, p)
     g_row, order, nv = WL.build_worklist(rows_u, R)
     return dict(hcus=hcus, n=n, A=A, rows_u=rows_u, counts=counts,
-                zep_i=zep_i, zi_new=zep_i.z + counts,
-                g_row=g_row, order=order, nv=nv)
+                zep_i=zep_i, zi_new=zep_i.z + counts, g_safe=g_safe,
+                iv_old=iv_old, g_row=g_row, order=order, nv=nv)
 
 
 def _ij_flats(hcus: H.HCUState):
     return (hcus.zij, hcus.eij, hcus.pij, hcus.wij, hcus.tij)
 
 
-def worklist_lazy_rows(hcus: H.HCUState, rows, t, p: BCPNNParams):
-    """Lazy worklist row phase: dedup + worklist build, then one
-    `ops.fused_row_update` call over the slot-ordered worklist (the H*R
-    sentinel on padding and duplicate slots), which rewrites the touched
-    ij-plane rows and i-vector cells in place and returns the h-major
-    weight rows for the WTA. Returns (hcus', w_rows (H, A, C), common)."""
+def worklist_lazy_rows(hcus: H.HCUState, rows, t, p: BCPNNParams,
+                       fused: bool = True):
+    """Lazy worklist row phase on the flat planes: dedup + worklist build,
+    then the touched rows rewritten in place. Returns (hcus', w_rows
+    (H, A, C), common).
+
+    ``fused``: one `ops.fused_row_update` call over the slot-ordered
+    worklist (the H*R sentinel on padding and duplicate slots) rewrites
+    the ij-plane rows and i-vector cells and returns the weight rows.
+    Unfused: one `ops.worklist_row_update` call over the worklist
+    compacted valid-first, then the i-vector writes, then the weight rows
+    gathered back from the updated Wij. Both give the same bits."""
     c = _row_worklist_common(hcus, rows, t, p)
     hcus = c["hcus"]
     n, A = c["n"], c["A"]
-    h_of = torch.arange(n * A, device=rows.device) // A
     zep_i = c["zep_i"]
-    w_flat = ops.fused_row_update(
-        *_ij_flats(hcus), hcus.zi, hcus.ei, hcus.pi, hcus.ti,
-        rows=c["g_row"], now=t, counts=c["counts"].reshape(-1),
-        zj=hcus.zj[h_of], p_i=zep_i.p.reshape(-1), pj=hcus.pj[h_of],
-        zi_new=c["zi_new"].reshape(-1), ei_new=zep_i.e.reshape(-1),
-        pi_new=zep_i.p.reshape(-1), coeffs=H.coeffs_ij(p), eps=p.eps)
-    return hcus, w_flat.reshape(n, A, p.cols), c
-
-
-def _wta(hcus: H.HCUState, w_rows, counts, keys, p: BCPNNParams):
-    """Periodic update (support integration + soft WTA) of every HCU; same
-    RNG stream as the JAX package's per-HCU `periodic_math`."""
-    h_new, fired = H.periodic_math(hcus.h, hcus.pj, w_rows, counts, keys, p)
-    return hcus._replace(h=h_new), fired
+    coeffs = H.coeffs_ij(p)
+    if fused:
+        h_of = torch.arange(n * A, device=rows.device) // A
+        w_flat = ops.fused_row_update(
+            *_ij_flats(hcus), hcus.zi, hcus.ei, hcus.pi, hcus.ti,
+            rows=c["g_row"], now=t, counts=c["counts"].reshape(-1),
+            zj=hcus.zj[h_of], p_i=zep_i.p.reshape(-1), pj=hcus.pj[h_of],
+            zi_new=c["zi_new"].reshape(-1), ei_new=zep_i.e.reshape(-1),
+            pi_new=zep_i.p.reshape(-1), coeffs=coeffs, eps=p.eps)
+        return hcus, w_flat.reshape(n, A, p.cols), c
+    HR = n * p.rows
+    order = c["order"].long()
+    h_of = order // A
+    W = order.shape[0]
+    rows_k = torch.where(torch.arange(W, device=rows.device) < c["nv"],
+                         c["g_row"][order], HR)
+    ops.worklist_row_update(
+        *_ij_flats(hcus), rows=rows_k, nv=c["nv"], now=t,
+        counts=c["counts"].reshape(-1)[order], zj=hcus.zj[h_of],
+        p_i=zep_i.p.reshape(-1)[order], pj=hcus.pj[h_of], coeffs=coeffs,
+        eps=p.eps)
+    H.write_ivecs(hcus, H.drop_redirect(c["g_safe"], c["rows_u"] < p.rows),
+                  t, (c["zi_new"], zep_i.e, zep_i.p), c["iv_old"])
+    g_row = c["g_row"].long()
+    w_g = hcus.wij[torch.clamp(g_row, max=HR - 1)]                # (W, C)
+    w_rows = torch.where((g_row < HR)[:, None], w_g, 0.0)
+    return hcus, w_rows.reshape(n, A, p.cols), c
 
 
 def _col_worklist_prologue(hcus: H.HCUState, h_idx, j_idx, now,
@@ -136,57 +226,101 @@ def _column_worklist(hcus: H.HCUState, h_idx, j_idx, now, p: BCPNNParams,
                          zi_t=zep_i.z, p_i=zep_i.p, pj_sc=pj_sc,
                          coeffs=H.coeffs_ij(p), eps=p.eps, n_hcu=n,
                          rows=p.rows)
-    return hcus._replace(zj=_bump_zj(hcus.zj, h_idx, j_idx, n))
+    return hcus._replace(zj=_bump_zj(hcus.zj, h_idx, j_idx, n, p))
+
+
+def worklist_col_dispatch(fused_cols: bool, h_idx, j_idx, t,
+                          p: BCPNNParams, n: int):
+    """The worklist backend's lazy column phase as a hcus -> hcus' closure:
+    the fused column kernel (`_column_worklist`), or the gathered-column
+    step of the dense backend run on the flat planes
+    (`_column_batched_on_flat`)."""
+    if fused_cols:
+        return lambda hc: _column_worklist(hc, h_idx, j_idx, t, p, n)
+    return lambda hc: _column_batched_on_flat(hc, h_idx, j_idx, t, p, n)
 
 
 # ---------------------------------------------------------------------------
-# the backend and the one tick body
+# the two backends
 # ---------------------------------------------------------------------------
 
-class WorklistBackend:
-    """Network-global worklist plane updates on the flat planes, lazy mode,
-    with the fused row and column phases (the JAX package's
-    `WorklistBackend(mode="lazy", fused=True, fused_cols=True)`)."""
+class DenseBackend(NamedTuple):
+    """Plane updates of every HCU at once on the batched (H, R, C) view of
+    the flat planes (a zero-copy reshape, `layout.batched_state`).
+
+    mode: "lazy" (timestamped row and column updates: `hcu.hcu_tick_pre`
+    and `column_updates_batched`) or "eager" (the dense golden model,
+    `reference.eager_tick`). The JAX package's "merged" mode is not ported
+    (ROADMAP queue A item 6)."""
+    mode: str = "lazy"
 
     def plane_update(self, state, rows, t, keys, p: BCPNNParams, cap: int):
         """Row phase, WTA and column phase of one tick. Returns
         (state', fired, h_idx, j_idx, n_dropped)."""
         n = state.delay_rows.shape[0]
-        hcus, w_rows, c = worklist_lazy_rows(state.hcus, rows, t, p)
-        hcus, fired = _wta(hcus, w_rows, c["counts"], keys, p)
+        hb = L.batched_state(state.hcus, n)
+        if self.mode == "eager":
+            hb, fired = reference.eager_tick(hb, rows, t, keys, p)
+            h_idx, j_idx, n_drop = N.select_fired(fired, cap)
+        elif self.mode == "lazy":
+            hb, fired = H.hcu_tick_pre(hb, rows, t, keys, p)
+            h_idx, j_idx, n_drop = N.select_fired(fired, cap)
+            hb = column_updates_batched(hb, h_idx, j_idx, t, p)
+        else:
+            raise NotImplementedError(
+                f"dense mode {self.mode!r} is not ported to PyTorch yet "
+                "(merged mode: ROADMAP queue A item 6)")
+        return (state._replace(hcus=L.flat_state(hb)), fired, h_idx, j_idx,
+                n_drop)
+
+
+class WorklistBackend(NamedTuple):
+    """Network-global worklist plane updates on the flat planes, lazy mode
+    (the JAX package's `WorklistBackend(mode="lazy")`). ``fused`` /
+    ``fused_cols`` pick the fused row / column kernel or the unfused
+    steps; all four combinations give the same bits."""
+    fused: bool = True
+    fused_cols: bool = True
+
+    def plane_update(self, state, rows, t, keys, p: BCPNNParams, cap: int):
+        """Row phase, WTA and column phase of one tick. Returns
+        (state', fired, h_idx, j_idx, n_dropped)."""
+        n = state.delay_rows.shape[0]
+        hcus, w_rows, c = worklist_lazy_rows(state.hcus, rows, t, p,
+                                             fused=self.fused)
+        hcus, fired = H.periodic_update(hcus, w_rows, c["counts"], keys, p)
         h_idx, j_idx, n_drop = N.select_fired(fired, cap)
-        hcus = _column_worklist(hcus, h_idx, j_idx, t, p, n)
+        hcus = worklist_col_dispatch(self.fused_cols, h_idx, j_idx, t, p,
+                                     n)(hcus)
         return state._replace(hcus=hcus), fired, h_idx, j_idx, n_drop
 
 
 def select_backend(p: BCPNNParams, *, eager: bool = False,
                    merged: bool = False, worklist: bool | None = None,
                    fused: bool | None = None, fused_cols: bool | None = None,
-                   layout=None) -> WorklistBackend:
-    """The port's tick backend. Only the lazy worklist backend with fused
-    row and column phases on the flat layout is ported; it runs at every
-    size (the JAX package picks its dense backend for R*C <= 65536, and the
-    two are held to the same trajectory by the head fixtures). Every other
-    choice raises, naming the ROADMAP item that ports it."""
-    missing = [
-        (eager, "the eager golden model (ROADMAP queue A item 5)"),
-        (merged, "merged mode (ROADMAP queue A item 6)"),
-        (layout not in (None, "flat"),
-         "blocked plane layouts (ROADMAP queue A item 7)"),
-        (worklist is False, "the dense backend (ROADMAP queue A item 5)"),
-        (fused is False,
-         "the unfused worklist row kernel (ROADMAP queue B item 3)"),
-        (fused_cols is False,
-         "the unfused column path (ROADMAP queue B item 5)"),
-    ]
-    for asked, what in missing:
-        if asked:
-            raise NotImplementedError(f"{what} is not ported to PyTorch yet")
-    return WorklistBackend()
+                   layout=None):
+    """Map the mode flags onto a backend, as the JAX package does: the
+    eager golden model is dense; otherwise `hcu.use_worklist`'s size guard
+    (R*C > 65536 takes the worklist backend) unless ``worklist=`` forces
+    either, with ``fused`` / ``fused_cols`` (default on) choosing the
+    worklist backend's row and column kernels. Merged mode and blocked
+    plane layouts raise, naming the ROADMAP item that ports them."""
+    if merged:
+        raise NotImplementedError("merged mode is not ported to PyTorch yet "
+                                  "(ROADMAP queue A item 6)")
+    if layout not in (None, "flat"):
+        raise NotImplementedError("blocked plane layouts are not ported to "
+                                  "PyTorch yet (ROADMAP queue A item 7)")
+    if eager:
+        return DenseBackend(mode="eager")
+    if H.use_worklist(p, worklist):
+        return WorklistBackend(fused=H.use_fused_rows(p, fused),
+                               fused_cols=H.use_fused_cols(p, fused_cols))
+    return DenseBackend(mode="lazy")
 
 
 def tick(state: N.NetworkState, conn: N.Connectivity, ext_rows,
-         p: BCPNNParams, be: WorklistBackend, cap_fire: int | None = None):
+         p: BCPNNParams, be, cap_fire: int | None = None):
     """Advance the network one 1 ms tick. The ij planes and i-vectors of
     ``state`` are rewritten in place; the other leaves of the returned
     state are new tensors. Returns (state', fired (H,) int32) with
@@ -236,26 +370,43 @@ class Simulator:
     """
 
     def __init__(self, p: BCPNNParams, key=0, *, n_hcu: int | None = None,
-                 device=None, cap_fire: int | None = None,
-                 worklist: bool | None = None, eager: bool = False,
-                 merged: bool = False, layout=None):
+                 device=None, merged: bool = False, eager: bool = False,
+                 worklist: bool | None = None, fused: bool | None = None,
+                 fused_cols: bool | None = None, cap_fire: int | None = None,
+                 layout=None):
         self.device = resolve_device(device)
+        # raises, before anything is allocated, for a mode not ported yet
         select_backend(p, eager=eager, merged=merged, worklist=worklist,
-                       layout=layout)
+                       fused=fused, fused_cols=fused_cols, layout=layout)
         self.p = p
         self.n_hcu = n_hcu or p.n_hcu
-        self.cap_fire = cap_fire
+        self.merged, self.eager = merged, eager
+        self.worklist, self.fused, self.fused_cols = worklist, fused, fused_cols
+        self.cap_fire, self.layout = cap_fire, layout
         self._key = (rng.PRNGKey(key, self.device) if isinstance(key, int)
                      else key.to(self.device))
         self.conn = N.make_connectivity(p, rng.fold_in(self._key, 1),
                                         self.n_hcu)
         self.state = N.init_network(p, self._key, self.n_hcu)
 
+    def _kw(self):
+        return dict(eager=self.eager, merged=self.merged,
+                    worklist=self.worklist, fused=self.fused,
+                    fused_cols=self.fused_cols, cap_fire=self.cap_fire,
+                    layout=self.layout)
+
+    @property
+    def backend(self):
+        """The plane backend that this Simulator's flags select."""
+        return select_backend(self.p, eager=self.eager, merged=self.merged,
+                              worklist=self.worklist, fused=self.fused,
+                              fused_cols=self.fused_cols, layout=self.layout)
+
     def tick(self, ext_rows):
         """One 1 ms tick; ext_rows (H, A_ext). Returns fired (H,)."""
         ext_rows = torch.as_tensor(ext_rows).to(self.device, torch.int32)
-        self.state, fired = tick(self.state, self.conn, ext_rows, self.p,
-                                 select_backend(self.p), self.cap_fire)
+        self.state, fired = N.network_tick(self.state, self.conn, ext_rows,
+                                           self.p, **self._kw())
         return fired
 
     def run(self, ext, n_ticks: int | None = None):
@@ -270,7 +421,15 @@ class Simulator:
         if n_ticks is not None:
             ext = ext[:n_ticks]
         self.state, fired = N.network_run(self.state, self.conn, ext, self.p,
-                                          cap_fire=self.cap_fire)
+                                          **self._kw())
+        return fired
+
+    def run_host(self, ext_fn, n_ticks: int):
+        """Per-tick host-loop driver: ext_fn(t) gives tick t's (H, A_ext)
+        input. Reads the time back to the host every tick, as the JAX
+        package's host loop does. Returns the fired history (T, H)."""
+        self.state, fired = N.run(self.state, self.conn, ext_fn, n_ticks,
+                                  self.p, **self._kw())
         return fired
 
     def run_sharded(self, *args, **kwargs):

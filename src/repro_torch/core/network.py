@@ -1,5 +1,5 @@
-"""Multi-HCU BCPNN network: state, spike queues, routing and the run loop
-(the port of `repro.core.network` for the local lazy worklist path).
+"""Multi-HCU BCPNN network: state, spike queues, routing and the run
+drivers (the port of `repro.core.network` for one device).
 
   * delay queue  — (H, max_delay, A) ring of buckets indexed by arrival
                    tick; a spike with delay d lands in bucket (t+d) % D.
@@ -161,22 +161,57 @@ def select_fired(fired: torch.Tensor, cap: int):
     return h_idx.to(torch.int32), j_idx.to(torch.int32), n_dropped.to(torch.int32)
 
 
+def network_tick(state: NetworkState, conn: Connectivity, ext_rows,
+                 p: BCPNNParams, *, eager: bool = False, merged: bool = False,
+                 cap_fire: int | None = None, worklist: bool | None = None,
+                 fused: bool | None = None, fused_cols: bool | None = None,
+                 layout=None):
+    """Advance the whole network one 1 ms tick with the backend that the
+    flags select (`engine.select_backend`). ext_rows (H, A_ext) int32
+    external input (padding == p.rows). Returns (state', fired (H,)); the
+    ij planes and i-vectors of ``state`` are updated in place."""
+    from repro_torch.core import engine as E
+    be = E.select_backend(p, eager=eager, merged=merged, worklist=worklist,
+                          fused=fused, fused_cols=fused_cols, layout=layout)
+    return E.tick(state, conn, ext_rows, p, be, cap_fire)
+
+
 def network_run(state: NetworkState, conn: Connectivity, ext: torch.Tensor,
-                p: BCPNNParams, *, cap_fire: int | None = None,
-                worklist: bool | None = None):
+                p: BCPNNParams, *, eager: bool = False, merged: bool = False,
+                cap_fire: int | None = None, worklist: bool | None = None,
+                fused: bool | None = None, fused_cols: bool | None = None,
+                layout=None):
     """Run len(ext) ticks: ext (T, H, A_ext) int32 pre-staged external
     spikes, consumed by ticks t0+1 .. t0+T. Returns (state', fired (T, H)
-    int32). A Python loop over `engine.tick` with the backend that
-    `engine.select_backend` picks; the ij planes and i-vectors of
-    ``state`` are updated in place."""
+    int32). A Python loop over `engine.tick` with the backend that the
+    flags select; the ij planes and i-vectors of ``state`` are updated in
+    place. Reads nothing back to the host."""
     from repro_torch.core import engine as E
-    be = E.select_backend(p, worklist=worklist)
+    be = E.select_backend(p, eager=eager, merged=merged, worklist=worklist,
+                          fused=fused, fused_cols=fused_cols, layout=layout)
     n = state.delay_rows.shape[0]
     if ext.shape[0] == 0:
         return state, torch.zeros((0, n), dtype=torch.int32, device=ext.device)
     hist = []
     for e in ext:
         state, fired = E.tick(state, conn, e, p, be, cap_fire)
+        hist.append(fired)
+    return state, torch.stack(hist)
+
+
+def run(state: NetworkState, conn: Connectivity, ext_fn, n_ticks: int,
+        p: BCPNNParams, **kw):
+    """Per-tick host-loop driver: ext_fn(t) -> (H, A_ext) external rows of
+    tick t (an array or tensor). One `network_tick` and one read of the
+    time back to the host per tick (a synchronisation, by design: the
+    dispatch-bound baseline for callers that need host-side control
+    between ticks). ``kw`` are `network_tick`'s flags. Returns (state',
+    fired (T, H))."""
+    dev = state.t.device
+    hist = []
+    for _ in range(n_ticks):
+        ext = torch.as_tensor(ext_fn(int(state.t) + 1)).to(dev, torch.int32)
+        state, fired = network_tick(state, conn, ext, p, **kw)
         hist.append(fired)
     return state, torch.stack(hist)
 

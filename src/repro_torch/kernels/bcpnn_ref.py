@@ -54,13 +54,14 @@ def cell_update_ref(zij, eij, pij, tij, now, dz, p_pre, p_post,
 
 def row_update_ref(zij, eij, pij, tij, now, counts, zj, p_i, p_j,
                    coeffs: DecayCoeffs, eps: float):
-    """Row update: blocks (S, C), rank-1 increment counts[:,None]*zj[None,:].
+    """Row update: blocks (..., S, C), rank-1 increment counts ⊗ zj.
 
-    counts (S,), zj (C,), p_i (S,), p_j (C,).
+    counts (..., S), zj (..., C), p_i (..., S), p_j (..., C); leading
+    dimensions (one per HCU) batch the JAX package's per-HCU form.
     """
-    dz = counts[:, None] * zj[None, :]
+    dz = counts[..., :, None] * zj[..., None, :]
     return cell_update_ref(zij, eij, pij, tij, now, dz,
-                           p_i[:, None], p_j[None, :], coeffs, eps)
+                           p_i[..., :, None], p_j[..., None, :], coeffs, eps)
 
 
 def col_update_ref(zij, eij, pij, tij, now, zi_t, p_i, p_j_scalar,

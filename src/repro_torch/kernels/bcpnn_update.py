@@ -1,13 +1,17 @@
-"""The worklist row and column phases of the lazy BCPNN tick: the two
-Hopper kernels (`csrc/bcpnn_update.cu`), their ctypes wrappers and their
-plain PyTorch versions.
+"""The BCPNN cell-update kernels of the lazy tick: the five Hopper kernels
+(`csrc/bcpnn_update.cu`), their ctypes wrappers and their plain PyTorch
+versions.
 
-Every function here rewrites the five (H*R, C) ij planes (and, for the row
-phase, the four (H*R,) i-vectors) IN PLACE, where the JAX package's
-kernels returned aliased new arrays. The plain versions compute the same
-function with vectorised torch ops (gather, `bcpnn_ref.cell_math`, masked
-scatter); the CPU path and the tests use them, and `chip_smoke.py` holds
-each kernel against its plain version on the card.
+The worklist kernels (`fused_row_update`, `fused_col_update`,
+`worklist_row_update`) rewrite the five (H*R, C) ij planes (and, for the
+fused row phase, the four (H*R,) i-vectors) IN PLACE, where the JAX
+package's kernels returned aliased new arrays. The block kernels
+(`row_update`, `col_update`) take blocks the caller gathered from the
+planes and return five new blocks, as the JAX kernels do. The plain
+versions compute the same functions with vectorised torch ops (gather,
+`bcpnn_ref.cell_math`, masked scatter); the CPU path and the tests use
+them, and `chip_smoke.py` holds each kernel against its plain version on
+the card.
 
 Each wrapper counts its launches in `launches[name]`: one per kernel
 launch, nowhere else, so a run can show that its main path went through
@@ -22,23 +26,29 @@ import torch
 
 from repro_torch.core.traces import DecayCoeffs
 from repro_torch.kernels import _build
-from repro_torch.kernels.bcpnn_ref import cell_math
+from repro_torch.kernels.bcpnn_ref import (cell_math, col_update_ref,
+                                            row_update_ref)
 
-launches = {"fused_row_update": 0, "fused_col_update": 0}
+launches = {"fused_row_update": 0, "fused_col_update": 0,
+            "worklist_row_update": 0, "row_update": 0, "col_update": 0}
 
-_P = ctypes.c_void_p
-_ROW_ARGTYPES = [_P] * 19 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong] \
-    + [ctypes.c_float] * 8 + [_P]
-_COL_ARGTYPES = [_P] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float] * 8 + [_P]
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_COEFFS = [ctypes.c_float] * 8
+_ARGTYPES = {
+    "bcpnn_fused_row_update": [_P] * 19 + [_I, _I, _LL] + _COEFFS + [_P],
+    "bcpnn_fused_col_update": [_P] * 11 + [_I] * 4 + _COEFFS + [_P],
+    "bcpnn_worklist_row_update": [_P] * 12 + [_I, _I, _LL] + _COEFFS + [_P],
+    "bcpnn_row_update": [_P] * 14 + [_LL, _I, _I] + _COEFFS + [_P],
+    "bcpnn_col_update": [_P] * 13 + [_LL, _I] + _COEFFS + [_P],
+}
 
 
 @functools.cache
 def _lib():
     lib = _build.load("bcpnn_update")
-    lib.bcpnn_fused_row_update.argtypes = _ROW_ARGTYPES
-    lib.bcpnn_fused_row_update.restype = ctypes.c_int
-    lib.bcpnn_fused_col_update.argtypes = _COL_ARGTYPES
-    lib.bcpnn_fused_col_update.restype = ctypes.c_int
+    for name, argtypes in _ARGTYPES.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -55,10 +65,22 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _check_one(name, t, device):
+    """An int32 one-element tensor that the kernel reads on the device."""
+    if not torch.is_tensor(t) or t.numel() != 1:
+        raise ValueError(f"{name}: expected a one-element tensor")
+    _check(name, t, torch.int32, tuple(t.shape), device)
+
+
+def _check_cuda(t):
+    if not torch.is_tensor(t) or t.device.type != "cuda":
+        where = t.device if torch.is_tensor(t) else type(t).__name__
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {where}")
+
+
 def _check_planes(planes, ivecs=None):
     zij = planes[0]
-    if zij.device.type != "cuda":
-        raise ValueError(f"the CUDA kernels take CUDA tensors, got {zij.device}")
+    _check_cuda(zij)
     if zij.dim() != 2:
         raise ValueError(f"planes must be (H*R, C), got {tuple(zij.shape)}")
     dev, shape = zij.device, tuple(zij.shape)
@@ -116,9 +138,7 @@ def fused_row_update_kernel(zij, eij, pij, wij, tij, zi, ei, pi, ti, rows,
     dev, (HR, C) = _check_planes(planes, ivecs)
     W = rows.shape[0] if torch.is_tensor(rows) else -1
     _check("rows", rows, torch.int32, (W,), dev)
-    _check("now", now, torch.int32, tuple(now.shape), dev)
-    if now.numel() != 1:
-        raise ValueError("now: expected one element")
+    _check_one("now", now, dev)
     for nm, t in (("counts", counts), ("p_i", p_i), ("zi_new", zi_new),
                   ("ei_new", ei_new), ("pi_new", pi_new)):
         _check(nm, t, torch.float32, (W,), dev)
@@ -196,9 +216,7 @@ def fused_col_update_kernel(zij, eij, pij, wij, tij, h_idx, j_idx, now, zi_t,
     K = h_idx.shape[0] if torch.is_tensor(h_idx) else -1
     _check("h_idx", h_idx, torch.int32, (K,), dev)
     _check("j_idx", j_idx, torch.int32, (K,), dev)
-    _check("now", now, torch.int32, tuple(now.shape), dev)
-    if now.numel() != 1:
-        raise ValueError("now: expected one element")
+    _check_one("now", now, dev)
     _check("zi_t", zi_t, torch.float32, (K, rows), dev)
     _check("p_i", p_i, torch.float32, (K, rows), dev)
     _check("pj_sc", pj_sc, torch.float32, (K,), dev)
@@ -234,3 +252,185 @@ def fused_col_update_plain(zij, eij, pij, wij, tij, h_idx, j_idx, now, zi_t,
     zij[r_ix, c_ix], eij[r_ix, c_ix] = z1, e1
     pij[r_ix, c_ix], wij[r_ix, c_ix] = p1, w1
     tij[r_ix, c_ix] = now.to(tij.dtype).reshape(())
+
+
+# --------------------------------------------------------------------------
+# unfused worklist row update
+# --------------------------------------------------------------------------
+
+def worklist_row_update_kernel(zij, eij, pij, wij, tij, rows, nv, now, counts,
+                               zj, p_i, pj, coeffs: DecayCoeffs, eps: float):
+    """The unfused worklist row update as one CUDA launch
+    (`worklist_row_kernel`).
+
+    Replaces `repro/kernels/bcpnn_update.py:worklist_update_kernel_call`
+    (`_worklist_kernel`). The W entries are compacted valid-first: entry i
+    is live when i < nv and rows[i] is a plane row, and then applies the
+    cell math to that row with dz = counts[i]*zj[i], p_pre = p_i[i] and
+    p_post = pj[i], and stamps Tij = now. Other entries write nothing,
+    whatever their row holds. The i-vectors and the weight rows are the
+    caller's.
+
+    Bound on the H100: bytes. A live entry moves 11*C*4 bytes (reads z, e,
+    p, t, zj, pj; writes z, e, p, w, t) for ~33 float32 ops per cell.
+    Design: that of `fused_row_update_kernel` (one warp per entry walking
+    its contiguous row, the same `row_walk` device function), with nv read
+    on the device so the launch needs no host value; the TPU's junk row and
+    per-call `_pad2` plane copies are gone.
+
+    Planes (H*R, C) are rewritten in place. rows (W,) int32; nv and now
+    int32 one-element tensors; counts / p_i (W,) and zj / pj (W, C)
+    float32. Launches on the current stream and never synchronises.
+    """
+    planes = (zij, eij, pij, wij, tij)
+    dev, (HR, C) = _check_planes(planes)
+    W = rows.shape[0] if torch.is_tensor(rows) else -1
+    _check("rows", rows, torch.int32, (W,), dev)
+    _check_one("nv", nv, dev)
+    _check_one("now", now, dev)
+    _check("counts", counts, torch.float32, (W,), dev)
+    _check("p_i", p_i, torch.float32, (W,), dev)
+    _check("zj", zj, torch.float32, (W, C), dev)
+    _check("pj", pj, torch.float32, (W, C), dev)
+    if W == 0:
+        return
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [t.data_ptr() for t in (*planes, rows, nv, now, counts, zj, p_i,
+                                   pj)]
+    rc = _lib().bcpnn_worklist_row_update(*ptrs, W, C, HR,
+                                          *_coeff_args(coeffs, eps), stream)
+    _raise_on(rc, "worklist_row_update")
+    launches["worklist_row_update"] += 1
+
+
+def worklist_row_update_plain(zij, eij, pij, wij, tij, rows, nv, now, counts,
+                              zj, p_i, pj, coeffs: DecayCoeffs, eps: float):
+    """Plain PyTorch version of `worklist_row_update_kernel` (same
+    arguments, same in-place effect): gather the live entries' rows, run
+    the cell math, scatter back."""
+    HR = zij.shape[0]
+    W = rows.shape[0]
+    live = ((torch.arange(W, device=rows.device) < nv.reshape(()))
+            & (rows >= 0) & (rows < HR))
+    sel = torch.nonzero(live).squeeze(1)
+    r = rows[sel].long()
+    dt = (now - tij[r]).to(torch.float32)
+    z1, e1, p1, w1 = cell_math(zij[r], eij[r], pij[r], dt,
+                               counts[sel, None] * zj[sel], p_i[sel, None],
+                               pj[sel], coeffs, eps)
+    zij[r], eij[r], pij[r], wij[r] = z1, e1, p1, w1
+    tij[r] = now.to(tij.dtype).reshape(())
+
+
+# --------------------------------------------------------------------------
+# gathered row and column blocks (the dense backend, the unfused columns)
+# --------------------------------------------------------------------------
+
+def _block_call(name, blocks, now, vecs, dims):
+    """Launch one block kernel on the (z, e, p, t) blocks; returns the five
+    new output blocks."""
+    dev = blocks[0].device
+    outs = tuple(torch.empty_like(b) for b in (*blocks[:3], blocks[0],
+                                               blocks[3]))
+    if blocks[0].numel() == 0:
+        return outs
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [t.data_ptr() for t in (*blocks, *outs, now, *vecs)]
+    rc = getattr(_lib(), f"bcpnn_{name}")(*ptrs, *dims, stream)
+    _raise_on(rc, name)
+    launches[name] += 1
+    return outs
+
+
+def _check_blocks(zij, eij, pij, tij):
+    _check_cuda(zij)
+    dev, shape = zij.device, tuple(zij.shape)
+    for nm, t in (("zij", zij), ("eij", eij), ("pij", pij)):
+        _check(nm, t, torch.float32, shape, dev)
+    _check("tij", tij, torch.int32, shape, dev)
+    return dev, shape
+
+
+def row_update_kernel(zij, eij, pij, tij, now, counts, zj, p_i, pj,
+                      coeffs: DecayCoeffs, eps: float):
+    """The dense row update as one CUDA launch (`row_block_kernel`),
+    batched over HCUs.
+
+    Replaces `repro/kernels/bcpnn_update.py:row_update_kernel_call`
+    (`_row_kernel`), which the JAX package calls once per HCU under `vmap`.
+    On the (H, A, C) blocks gathered from the planes, cell (h, a, c) gets
+    dz = counts[h, a]*zj[h, c], p_pre = p_i[h, a] and p_post = pj[h, c].
+    Every slot is computed, padding included. Returns new blocks
+    (z', e', p', w', t'), t' = now; the inputs are not written. The weight
+    plane is never read (JAX passes it only to alias it), so it is not an
+    argument.
+
+    Bound on the H100: bytes, 9*4 per cell (reads z, e, p, t; writes z, e,
+    p, w, t; counts, zj, p_i and pj are small and cached) for ~33 float32
+    ops. Design: one thread per cell over the contiguous blocks, so every
+    access is coalesced; the TPU's (8, 128) tiles and `_pad2`/`_pad1`
+    copies are gone.
+
+    zij / eij / pij (H, A, C) float32 and tij int32; now an int32
+    one-element tensor; counts / p_i (H, A) and zj / pj (H, C) float32,
+    all contiguous on one CUDA device. Launches on the current stream and
+    never synchronises.
+    """
+    dev, (n, A, C) = _check_blocks(zij, eij, pij, tij)
+    _check_one("now", now, dev)
+    _check("counts", counts, torch.float32, (n, A), dev)
+    _check("p_i", p_i, torch.float32, (n, A), dev)
+    _check("zj", zj, torch.float32, (n, C), dev)
+    _check("pj", pj, torch.float32, (n, C), dev)
+    return _block_call("row_update", (zij, eij, pij, tij), now,
+                       (counts, zj, p_i, pj), (n * A, A, C)
+                       + _coeff_args(coeffs, eps))
+
+
+def row_update_plain(zij, eij, pij, tij, now, counts, zj, p_i, pj,
+                     coeffs: DecayCoeffs, eps: float):
+    """Plain PyTorch version of `row_update_kernel` (same arguments, same
+    results): the cell oracle on the whole blocks."""
+    return row_update_ref(zij, eij, pij, tij, now.reshape(()), counts, zj,
+                          p_i, pj, coeffs, eps)
+
+
+def col_update_kernel(zij, eij, pij, tij, now, zi_t, p_i, pj_sc,
+                      coeffs: DecayCoeffs, eps: float):
+    """The column update as one CUDA launch (`col_block_kernel`), batched
+    over the fired batch.
+
+    Replaces `repro/kernels/bcpnn_update.py:col_update_kernel_call`
+    (`_col_kernel`), which the JAX package calls once per fired-batch entry
+    under `vmap`. On the (K, R) columns gathered from the planes, cell
+    (k, r) gets dz = zi_t[k, r], p_pre = p_i[k, r] and p_post = pj_sc[k].
+    Every entry is computed, padding included. Returns new blocks
+    (z', e', p', w', t'), t' = now; the weight plane is never read and not
+    an argument.
+
+    Bound on the H100: bytes, 11*4 per cell (reads z, e, p, t, zi_t, p_i;
+    writes z, e, p, w, t) for ~33 float32 ops. Design: one thread per cell
+    of the contiguous (K, R) blocks; the TPU's (R/128, 128) lane reshape
+    and padding copies are gone. The strided access of a column (cells C*4
+    bytes apart in the planes) is paid by the caller's gather and scatter,
+    not here.
+
+    zij / eij / pij (K, R) float32 and tij int32; now an int32 one-element
+    tensor; zi_t / p_i (K, R) and pj_sc (K,) float32. Launches on the
+    current stream and never synchronises.
+    """
+    dev, (K, R) = _check_blocks(zij, eij, pij, tij)
+    _check_one("now", now, dev)
+    _check("zi_t", zi_t, torch.float32, (K, R), dev)
+    _check("p_i", p_i, torch.float32, (K, R), dev)
+    _check("pj_sc", pj_sc, torch.float32, (K,), dev)
+    return _block_call("col_update", (zij, eij, pij, tij), now,
+                       (zi_t, p_i, pj_sc), (K, R) + _coeff_args(coeffs, eps))
+
+
+def col_update_plain(zij, eij, pij, tij, now, zi_t, p_i, pj_sc,
+                     coeffs: DecayCoeffs, eps: float):
+    """Plain PyTorch version of `col_update_kernel` (same arguments, same
+    results): the cell oracle on the whole blocks."""
+    return col_update_ref(zij, eij, pij, tij, now.reshape(()), zi_t, p_i,
+                          pj_sc[:, None], coeffs, eps)

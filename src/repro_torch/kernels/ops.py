@@ -6,8 +6,12 @@ plain PyTorch version (the caller asked for the CPU); planes anywhere else
 go to the CUDA kernel, which launches or raises. There is no switch and no
 fallback from the kernel to the plain version.
 
-Unlike the JAX wrappers, these pad nothing and copy no plane: the kernels
-take the unpadded (H*R, C) planes and rewrite them in place.
+Unlike the JAX wrappers, these pad nothing and copy no plane: the
+worklist kernels take the unpadded (H*R, C) planes and rewrite them in
+place, and the block kernels take the gathered blocks as they are (no
+junk rows, no (R/128, 128) reshape). The block entries are batched: one
+call covers every HCU (`row_update`) or every fired-batch entry
+(`col_update`) where the JAX package vmaps a per-HCU call.
 """
 from __future__ import annotations
 
@@ -23,6 +27,10 @@ def _now(now, device):
     return torch.tensor(now, dtype=torch.int32, device=device)
 
 
+def _dispatch(plain, kernel, device):
+    return plain if device.type == "cpu" else kernel
+
+
 def fused_row_update(zij, eij, pij, wij, tij, zi, ei, pi, ti, rows, now,
                      counts, zj, p_i, pj, zi_new, ei_new, pi_new,
                      coeffs: DecayCoeffs, eps: float):
@@ -34,8 +42,8 @@ def fused_row_update(zij, eij, pij, wij, tij, zi, ei, pi, ti, rows, now,
     tensor. The five ij planes and four i-vectors are rewritten in place;
     returns the (W, C) weight rows (zero on sentinel slots) for the WTA.
     """
-    fn = (BU.fused_row_update_plain if zij.device.type == "cpu"
-          else BU.fused_row_update_kernel)
+    fn = _dispatch(BU.fused_row_update_plain, BU.fused_row_update_kernel,
+                   zij.device)
     return fn(zij, eij, pij, wij, tij, zi, ei, pi, ti, rows,
               _now(now, zij.device), counts, zj, p_i, pj, zi_new, ei_new,
               pi_new, coeffs, eps)
@@ -51,7 +59,47 @@ def fused_col_update(zij, eij, pij, wij, tij, h_idx, j_idx, now, zi_t, p_i,
     p_i (K, rows): per-entry presynaptic traces at ``now``; pj_sc (K,):
     per-entry postsynaptic P. The five ij planes are rewritten in place.
     """
-    fn = (BU.fused_col_update_plain if zij.device.type == "cpu"
-          else BU.fused_col_update_kernel)
+    fn = _dispatch(BU.fused_col_update_plain, BU.fused_col_update_kernel,
+                   zij.device)
     fn(zij, eij, pij, wij, tij, h_idx, j_idx, _now(now, zij.device), zi_t,
        p_i, pj_sc, coeffs, eps, n_hcu, rows)
+
+
+def worklist_row_update(zij, eij, pij, wij, tij, rows, nv, now, counts, zj,
+                        p_i, pj, coeffs: DecayCoeffs, eps: float):
+    """Unfused worklist row update over the flat planes.
+
+    rows (W,) int32: flat row indices compacted valid-first; entries at or
+    past ``nv`` (an int32 tensor) are ignored whatever they hold.
+    counts / p_i (W,), zj / pj (W, C): per-entry operands. The five ij
+    planes are rewritten in place; the i-vectors are the caller's.
+    """
+    fn = _dispatch(BU.worklist_row_update_plain,
+                   BU.worklist_row_update_kernel, zij.device)
+    fn(zij, eij, pij, wij, tij, rows, nv.reshape(1).to(torch.int32),
+       _now(now, zij.device), counts, zj, p_i, pj, coeffs, eps)
+
+
+def row_update(zij, eij, pij, tij, now, counts, zj, p_i, pj,
+               coeffs: DecayCoeffs, eps: float):
+    """Fused lazy row update on gathered row blocks, batched over HCUs.
+
+    zij / eij / pij / tij (H, A, C); counts / p_i (H, A); zj / pj (H, C).
+    Returns new (zij', eij', pij', wij', tij') blocks.
+    """
+    fn = _dispatch(BU.row_update_plain, BU.row_update_kernel, zij.device)
+    return fn(zij, eij, pij, tij, _now(now, zij.device), counts, zj, p_i, pj,
+              coeffs, eps)
+
+
+def col_update(zij, eij, pij, tij, now, zi_t, p_i, pj_sc,
+               coeffs: DecayCoeffs, eps: float):
+    """Fused lazy column update on gathered columns, batched over the fired
+    batch.
+
+    zij / eij / pij / tij / zi_t / p_i (K, R); pj_sc (K,). Returns new
+    (zij', eij', pij', wij', tij') blocks.
+    """
+    fn = _dispatch(BU.col_update_plain, BU.col_update_kernel, zij.device)
+    return fn(zij, eij, pij, tij, _now(now, zij.device), zi_t, p_i, pj_sc,
+              coeffs, eps)

@@ -1,12 +1,18 @@
-"""The port's lazy worklist tick end to end, on the CPU.
+"""The port's tick engine end to end, on the CPU.
 
-* From the head fixtures (no JAX in the process):
-  `Simulator(test_scale(4, 64, 16), key=0, device="cpu").run(ext)` against
-  `head_lazy_worklist.npz` and `head_lazy_dense.npz` (the JAX package's
-  worklist and dense backends, which pin the same trajectory).
-* Live, at rodent width: the JAX `Simulator.run` (kernel="ref", the
-  worklist backend is its default at R*C > 65536) in a child process
-  against the port on the CPU, 60 ticks from the same numpy input.
+* From the head fixtures (no JAX in the process),
+  `Simulator(test_scale(4, 64, 16), key=0, device="cpu")` under the flags
+  each fixture was captured with: `head_lazy_worklist.npz` (worklist=True,
+  in all four fused / fused_cols combinations), `head_lazy_dense.npz`
+  (worklist=False), `head_eager.npz` (eager=True) and
+  `head_host_lazy.npz` (`run_host`, worklist=False).
+* Live, at rodent width: the JAX `Simulator.run` (kernel="ref") in a child
+  process against the port on the CPU with the same flags (the default
+  fused worklist backend, the unfused one, the dense one), 60 ticks from
+  the same numpy input.
+* Lazy against eager, as tests/test_lazy_vs_eager.py holds the JAX
+  package: equal fired histories, flushed traces within rtol = atol =
+  2e-4.
 * `repro_torch.convert`: the JAX leaves round-trip, and a run carried
   through numpy halfway equals the unbroken run exactly.
 
@@ -18,12 +24,14 @@ torch 2.13 on the CPU and the JAX package (fixtures and the live run):
   leaf   largest gap                          tolerance
   zij    2.4e-7 abs (values up to 2)          rtol 4e-6, atol 4e-7
   pij    8.8e-7 relative (values ~1e-3)       rtol 4e-6, atol 4e-7
-  wij    8.9e-7 abs (w passes through 0)      rtol 4e-6, atol 4e-6
+  wij    1.2e-6 abs (w passes through 0)      rtol 4e-6, atol 4e-6
   h      2.3e-5 abs (values up to 14)         rtol 4e-6, atol 1e-4
 
 All come from float32 exp/log differing by an ulp or so between XLA:CPU
 and torch. h is larger because it integrates the WTA drive, a sum of up to
-A count*w terms per tick whose ulp-level gaps add up under cancellation.
+A count*w terms per tick whose ulp-level gaps add up under cancellation
+(the eager model's drive is a matrix product, summed in another order
+again). The eager fixture's largest gap is wij's 1.2e-6.
 """
 import pathlib
 
@@ -34,6 +42,7 @@ import torch
 from torch_jax_ref import run_jax
 from repro_torch import convert
 from repro_torch.core import Simulator
+from repro_torch.core import hcu as H
 from repro_torch.core import layout as L
 from repro_torch.core import worklist as WL
 from repro_torch.core.params import BCPNNParams
@@ -84,36 +93,78 @@ def ext_tensor(p, T, width=8, lam=4.0, seed=0):
     return out
 
 
-@pytest.mark.parametrize("name", ["lazy_worklist", "lazy_dense"])
-def test_fixture_trajectory(name):
+# fixture name -> (the flags it was captured with, host-loop driver?);
+# tests/fixtures/capture_head.py captures them
+FIXTURE_FLAGS = {
+    "lazy_worklist": (dict(worklist=True), False),
+    "lazy_dense": (dict(worklist=False), False),
+    "eager": (dict(eager=True), False),
+    "host_lazy": (dict(worklist=False), True),
+}
+WORKLIST_COMBOS = [dict(fused=f, fused_cols=fc) for f in (True, False)
+                   for fc in (True, False)]
+combo_id = lambda kw: f"fused={kw['fused']},fused_cols={kw['fused_cols']}"
+
+
+def replay_fixture(name, device, **extra):
+    """Run head_<name>.npz's input through the port under its flags;
+    returns (the fixture, fired, state)."""
     d = dict(np.load(FIXTURES / f"head_{name}.npz"))
-    sim = Simulator(tiny_scale(4, 64, 16), key=0, device="cpu")
-    fired = sim.run(d["ext"])
+    kw, host = FIXTURE_FLAGS[name]
+    sim = Simulator(tiny_scale(4, 64, 16), key=0, device=device,
+                    **kw, **extra)
+    if host:
+        ext = torch.from_numpy(d["ext"])
+        fired = sim.run_host(lambda t: ext[t - 1], ext.shape[0])
+    else:
+        fired = sim.run(d["ext"])
+    return d, fired.cpu(), sim.state
+
+
+@pytest.mark.parametrize("name", list(FIXTURE_FLAGS))
+def test_fixture_trajectory(name):
+    d, fired, state = replay_fixture(name, "cpu")
     assert (fired >= 0).sum() > 0
-    assert_contract(fired, sim.state, d, name)
+    assert_contract(fired, state, d, name)
 
 
-@pytest.mark.cuda
-def test_fixture_trajectory_on_cuda():
-    """The same fixture through the CUDA kernels, under the same contract."""
+@pytest.mark.parametrize("kw", WORKLIST_COMBOS, ids=combo_id)
+def test_worklist_fused_and_unfused_match_fixture(kw):
+    """Every (fused, fused_cols) combination of the worklist backend holds
+    the head_lazy_worklist trajectory."""
+    d, fired, state = replay_fixture("lazy_worklist", "cpu", **kw)
+    assert_contract(fired, state, d, f"lazy_worklist {kw}")
+
+
+def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    d = dict(np.load(FIXTURES / "head_lazy_worklist.npz"))
-    sim = Simulator(tiny_scale(4, 64, 16), key=0, device="cuda")
-    fired = sim.run(d["ext"]).cpu()
-    assert_contract(fired, sim.state, d, "lazy_worklist on cuda")
 
 
 @pytest.mark.cuda
-def test_tick_never_synchronises_on_cuda():
+@pytest.mark.parametrize("name,kw", [
+    *(("lazy_worklist", kw) for kw in WORKLIST_COMBOS),
+    ("lazy_dense", {}), ("eager", {}), ("host_lazy", {})],
+    ids=lambda v: combo_id(v) if isinstance(v, dict) and v else str(v))
+def test_fixture_trajectory_on_cuda(name, kw):
+    """The fixtures through the CUDA kernels, under the same contract."""
+    _cuda()
+    d, fired, state = replay_fixture(name, "cuda", **kw)
+    assert_contract(fired, state, d, f"{name} {kw} on cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, dict(fused=False, fused_cols=False),
+                                dict(worklist=False)],
+                         ids=["fused", "unfused", "dense"])
+def test_tick_never_synchronises_on_cuda(kw):
     """No operation inside a tick waits for the device (what a CUDA-graph
     capture of a chunk of ticks needs): sync-debug mode "error" raises on
     any that does."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+    _cuda()
     p = BCPNNParams(n_hcu=8, rows=1200, cols=70, fanout=8, active_queue=16)
     ext = torch.from_numpy(ext_tensor(p, 12)).cuda()
-    sim = Simulator(p, key=0, device="cuda")
+    sim = Simulator(p, key=0, device="cuda", **kw)
     sim.run(ext[:2])                     # builds and loads the kernels
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -143,25 +194,101 @@ for f, v in zip(st.hcus._fields, sim.flushed()):
 """
 
 
-def test_live_rodent_width_matches_jax():
+def _rodent_inputs():
     p = RODENT4
-    ext = ext_tensor(p, LIVE_TICKS)
     dims = {k: np.int64(getattr(p, k)) for k in
             ("n_hcu", "rows", "cols", "fanout", "active_queue", "max_delay")}
-    ref = run_jax(_LIVE_BODY, {"ext": ext, **dims})
-    sim = Simulator(p, key=0, device="cpu")
-    fired = sim.run(ext)
+    return p, ext_tensor(p, LIVE_TICKS), dims
+
+
+def assert_live(sim, fired, ref, name, pre=""):
     assert int((fired >= 0).sum()) >= 10, "too few spikes to cover columns"
-    assert_contract(fired, sim.state, ref, "rodent4")
+    assert_contract(fired, sim.state, {k[len(pre):]: v for k, v in ref.items()
+                                       if k.startswith(pre)}, name)
     # every lazy trace brought current: the batched (H, R, C) view
     for f, v in zip(sim.state.hcus._fields, sim.flushed()):
-        want = ref[f"flushed_{f}"]
+        want = ref[f"{pre}flushed_{f}"]
         got = v.numpy().reshape(want.shape)
         if got.dtype.kind == "i":
             np.testing.assert_array_equal(got, want, err_msg=f)
         else:
             np.testing.assert_allclose(got, want, err_msg=f"flushed {f}",
                                        **FLOAT_TOL.get(f"hcus_{f}", DEFAULT_TOL))
+
+
+def test_live_rodent_width_matches_jax():
+    p, ext, dims = _rodent_inputs()
+    ref = run_jax(_LIVE_BODY, {"ext": ext, **dims})
+    sim = Simulator(p, key=0, device="cpu")
+    fired = sim.run(ext)
+    assert_live(sim, fired, ref, "rodent4")
+
+
+# the JAX Simulator with the unfused worklist flags and the dense backend
+_LIVE_FLAGS = {"unfused": dict(fused=False, fused_cols=False),
+               "dense": dict(worklist=False)}
+_LIVE_BACKENDS_BODY = """
+from repro.core import Simulator
+from repro.core.params import BCPNNParams
+p = BCPNNParams(**{k: int(IN[k]) for k in
+                   ("n_hcu", "rows", "cols", "fanout", "active_queue",
+                    "max_delay")})
+for pre, kw, backend in (("unfused_", dict(fused=False, fused_cols=False),
+                          "WorklistBackend"),
+                         ("dense_", dict(worklist=False), "DenseBackend")):
+    sim = Simulator(p, key=0, kernel="ref", **kw)
+    be = sim.backend
+    assert type(be).__name__ == backend, be
+    OUT[pre + "fired"] = sim.run(jnp.asarray(IN["ext"]))
+    st = sim.state
+    for f in st.hcus._fields:
+        OUT[f"{pre}hcus_{f}"] = getattr(st.hcus, f)
+    for f in ("delay_rows", "delay_count", "t", "drops_in", "drops_fire"):
+        OUT[pre + f] = getattr(st, f)
+    for f, v in zip(st.hcus._fields, sim.flushed()):
+        OUT[f"{pre}flushed_{f}"] = v
+"""
+
+
+@pytest.fixture(scope="module")
+def live_backends_ref():
+    _, ext, dims = _rodent_inputs()
+    return run_jax(_LIVE_BACKENDS_BODY, {"ext": ext, **dims})
+
+
+@pytest.mark.parametrize("name", list(_LIVE_FLAGS))
+def test_live_rodent_width_backends_match_jax(live_backends_ref, name):
+    """The unfused worklist backend and the dense backend against the JAX
+    `Simulator` with the same flags, 60 ticks at rodent width."""
+    p, ext, _ = _rodent_inputs()
+    sim = Simulator(p, key=0, device="cpu", **_LIVE_FLAGS[name])
+    fired = sim.run(ext)
+    assert_live(sim, fired, live_backends_ref, f"rodent4 {name}", f"{name}_")
+
+
+@pytest.mark.parametrize("seed,n_ticks,dims",
+                         [(0, 50, (4, 64, 16)), (1, 30, (4, 64, 16)),
+                          (3, 20, (2, 32, 16))],
+                         ids=["seed0", "seed1", "2x32x16"])
+def test_lazy_matches_eager(seed, n_ticks, dims):
+    """The lazy tick against the eager golden model (the port's
+    tests/test_lazy_vs_eager.py): the same spikes, and the same trace
+    state after a flush up to float rounding."""
+    p = tiny_scale(*dims)
+    ext = ext_tensor(p, n_ticks, lam=3.0, seed=seed)
+    lazy = Simulator(p, key=0, device="cpu", cap_fire=p.n_hcu)
+    eager = Simulator(p, key=0, device="cpu", cap_fire=p.n_hcu, eager=True)
+    f_lazy = torch.stack([lazy.tick(e) for e in ext])
+    f_eager = torch.stack([eager.tick(e) for e in ext])
+    np.testing.assert_array_equal(f_lazy.numpy(), f_eager.numpy())
+    assert (f_lazy >= 0).sum() > 0, "test must exercise output spikes"
+    a, b = lazy.flushed(), eager.flushed()
+    for name in ("zij", "eij", "pij", "wij", "zi", "ei", "pi", "zj", "ej",
+                 "pj", "h"):
+        np.testing.assert_allclose(getattr(a, name).numpy(),
+                                   getattr(b, name).numpy(), rtol=2e-4,
+                                   atol=2e-4,
+                                   err_msg=f"trace plane {name} diverged")
 
 
 def test_convert_round_trip():
@@ -213,6 +340,28 @@ def test_build_worklist_and_compact_mask():
     assert int(nv) == len(valid)
     np.testing.assert_array_equal(order[:len(valid)].numpy(), valid)
     assert not order[len(valid):].any()
+
+
+@pytest.mark.parametrize("trailing", [(), (3,)], ids=["vector", "rows"])
+def test_put_drop_is_a_drop_mode_scatter(trailing):
+    """`hcu.put_drop` writes what JAX's ``.at[idx].set(new, mode="drop")``
+    writes, with the padding entries clipped into range: group 0 has
+    valid entries and padding, group 1 none at all, group 2 only valid
+    entries."""
+    rs = np.random.default_rng(5)
+    n_dst, A = 12, 4
+    dst = rs.normal(size=(n_dst, *trailing)).astype(np.float32)
+    valid = np.array([[1, 1, 0, 0], [0, 0, 0, 0], [1, 1, 1, 1]], bool)
+    idx = np.array([[2, 5, 11, 11], [11, 11, 11, 11], [0, 1, 3, 7]])
+    new = rs.normal(size=(3, A, *trailing)).astype(np.float32)
+    want = dst.copy()
+    want[idx[valid]] = new[valid]
+    got = torch.from_numpy(dst.copy())
+    idx_t = torch.from_numpy(idx)
+    old = got[idx_t]
+    H.put_drop(got, torch.from_numpy(new), old,
+               H.drop_redirect(idx_t, torch.from_numpy(valid)))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_flat_and_batched_views_share_storage():

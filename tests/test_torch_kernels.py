@@ -1,11 +1,13 @@
-"""The port's worklist row and column updates against the JAX package.
+"""The port's BCPNN cell-update kernels against the JAX package.
 
-* On the CPU, `repro_torch.kernels.ops.fused_row_update` /
-  `fused_col_update` (their plain PyTorch versions) against the JAX
-  `ops.fused_row_update` / `ops.fused_col_update` Pallas kernels in
-  interpret mode at a 4x64x16 size, and against the JAX cell oracle
-  (`bcpnn_ref.row_update_ref` / `col_update_ref`) at rodent width
-  (R=1200, C=70). The JAX side runs in a child process.
+* On the CPU, the five `repro_torch.kernels.ops` entries (their plain
+  PyTorch versions) against the JAX Pallas kernels in interpret mode at a
+  4x64x16 size (`ops.fused_row_update`, `ops.fused_col_update`,
+  `ops.worklist_row_update`, and `ops.row_update` / `ops.col_update`
+  vmapped over HCUs / fired entries as `repro.core.hcu.row_updates` and
+  `repro.core.engine.column_updates_batched` call them), and against the
+  JAX cell oracle (`bcpnn_ref.row_update_ref` / `col_update_ref`) at
+  rodent width (R=1200, C=70). The JAX side runs in a child process.
 * On a CUDA device (skipped without one), each CUDA kernel against its
   plain version on the same inputs.
 * The device decides the path: a non-CPU tensor never reaches the plain
@@ -87,6 +89,58 @@ def col_inputs(seed, n, R, C, K=4):
     return d
 
 
+def worklist_inputs(seed, n, R, C, A):
+    """Unfused worklist: W = n*A entries compacted valid-first, nv of them
+    live with unique rows (the plane's last row among them); the entries
+    past nv hold in-range rows too, which must not be written."""
+    rs = np.random.default_rng(seed)
+    HR, W = n * R, n * A
+    nv = W // 3
+    rows = rs.integers(0, HR, W).astype(np.int32)
+    rows[:nv] = np.sort(rs.choice(HR - 1, size=nv, replace=False))
+    rows[nv - 1] = HR - 1
+    d = _planes(rs, n, R, C)
+    d.update(rows=rows, nv=np.array([nv], np.int32),
+             counts=rs.integers(1, 4, W).astype(np.float32),
+             zj=rs.uniform(0, 2, (W, C)).astype(np.float32),
+             p_i=rs.uniform(1e-4, 0.1, W).astype(np.float32),
+             pj=rs.uniform(1e-4, 0.1, (W, C)).astype(np.float32))
+    return d
+
+
+def block_inputs(seed, lead, C):
+    """Gathered blocks: z, e, p, t of shape (*lead, C)."""
+    rs = np.random.default_rng(seed)
+    shape = (*lead, C)
+    return dict(zij=rs.uniform(0, 2, shape).astype(np.float32),
+                eij=rs.uniform(0, 0.5, shape).astype(np.float32),
+                pij=rs.uniform(1e-5, 0.05, shape).astype(np.float32),
+                tij=rs.integers(0, NOW + 1, shape).astype(np.int32))
+
+
+def rowblock_inputs(seed, n, R, C, A):
+    """Dense row blocks (n, A, C); the last HCU's slots past the first are
+    padding (count 0), as dedup_rows leaves them."""
+    rs = np.random.default_rng(seed + 100)
+    d = block_inputs(seed, (n, A), C)
+    counts = rs.integers(1, 4, (n, A)).astype(np.float32)
+    counts[-1, 1:] = 0.0
+    d.update(counts=counts, zj=rs.uniform(0, 2, (n, C)).astype(np.float32),
+             p_i=rs.uniform(1e-4, 0.1, (n, A)).astype(np.float32),
+             pj=rs.uniform(1e-4, 0.1, (n, C)).astype(np.float32))
+    return d
+
+
+def colblock_inputs(seed, R, K=4):
+    """Gathered columns (K, R) of a fired batch."""
+    rs = np.random.default_rng(seed + 100)
+    d = block_inputs(seed, (K,), R)
+    d.update(zi_t=rs.uniform(0, 3, (K, R)).astype(np.float32),
+             p_i=rs.uniform(1e-4, 0.1, (K, R)).astype(np.float32),
+             pj_sc=rs.uniform(1e-4, 0.1, K).astype(np.float32))
+    return d
+
+
 def prefixed(d, pre):
     return {f"{pre}_{k}": v for k, v in d.items()}
 
@@ -157,6 +211,47 @@ for f, v in zip(COL, outs):
     a[f][ri, ci] = np.asarray(v)
 for f in COL:
     OUT[f"rcol_{f}"] = a[f]
+
+# unfused worklist: the Pallas kernel (small) and the cell oracle (rodent)
+a = arg("swl")
+flats = ops.worklist_row_update(
+    *(a[f] for f in COL), rows=a["rows"], nv=a["nv"][0], now=NOW,
+    counts=a["counts"], zj=a["zj"], p_i=a["p_i"], pj=a["pj"], coeffs=k,
+    eps=eps, backend="pallas_interpret")
+for f, v in zip(COL, flats):
+    OUT[f"swl_{f}"] = v
+a = {n: np.array(v) for n, v in arg("rwl").items()}
+live = np.arange(a["rows"].shape[0]) < a["nv"][0]
+r = a["rows"][live]
+z1, e1, p1, w1, t1 = jax.vmap(
+    lambda z, e, p, t, c, zj, pi, pj: bcpnn_ref.row_update_ref(
+        z[None], e[None], p[None], t[None], NOW, c[None], zj, pi[None], pj,
+        k, eps))(*(jnp.asarray(a[f][r]) for f in ("zij", "eij", "pij", "tij")),
+                 *(jnp.asarray(a[f][live]) for f in ("counts", "zj", "p_i", "pj")))
+for f, v in zip(COL, (z1, e1, p1, w1, t1)):
+    a[f][r] = np.asarray(v)[:, 0]
+    OUT[f"rwl_{f}"] = a[f]
+
+# dense row blocks and gathered columns: the Pallas kernels vmapped as the
+# engine vmaps them (small), the cell oracle (rodent)
+BLK = ("zij", "eij", "pij", "wij", "tij")
+for pre, backend in (("srb", "pallas_interpret"), ("rrb", "ref")):
+    a = arg(pre)
+    outs = jax.vmap(lambda z, e, p, t, c, zj, pi, pj: ops.row_update(
+        z, e, p, t, NOW, c, zj, pi, pj, k, eps, backend=backend,
+        wij=jnp.zeros_like(z)))(
+        *(a[f] for f in ("zij", "eij", "pij", "tij", "counts", "zj", "p_i",
+                         "pj")))
+    for f, v in zip(BLK, outs):
+        OUT[f"{pre}_{f}"] = v
+for pre, backend in (("scb", "pallas_interpret"), ("rcb", "ref")):
+    a = arg(pre)
+    outs = jax.vmap(lambda z, e, p, t, zi, pi, pj: ops.col_update(
+        z, e, p, t, NOW, zi, pi, pj, k, eps, backend=backend,
+        w_col=jnp.zeros_like(z)))(
+        *(a[f] for f in ("zij", "eij", "pij", "tij", "zi_t", "p_i", "pj_sc")))
+    for f, v in zip(BLK, outs):
+        OUT[f"{pre}_{f}"] = v
 """
 
 
@@ -165,7 +260,13 @@ def cases():
     ins = {"srow": row_inputs(1, **SMALL),
            "scol": col_inputs(2, SMALL["n"], SMALL["R"], SMALL["C"]),
            "rrow": row_inputs(3, **RODENT),
-           "rcol": col_inputs(4, RODENT["n"], RODENT["R"], RODENT["C"], K=3)}
+           "rcol": col_inputs(4, RODENT["n"], RODENT["R"], RODENT["C"], K=3),
+           "swl": worklist_inputs(11, **SMALL),
+           "rwl": worklist_inputs(12, **RODENT),
+           "srb": rowblock_inputs(13, **SMALL),
+           "rrb": rowblock_inputs(14, **RODENT),
+           "scb": colblock_inputs(15, SMALL["R"]),
+           "rcb": colblock_inputs(16, RODENT["R"], K=3)}
     flat = {"now": np.int32(NOW), "small_n": SMALL["n"], "small_R": SMALL["R"],
             "rodent_n": RODENT["n"], "rodent_R": RODENT["R"]}
     for pre, d in ins.items():
@@ -197,6 +298,43 @@ def run_col(d, n, R, device="cpu", fn=None):
         torch.tensor(NOW, dtype=torch.int32, device=device), a["zi_t"],
         a["p_i"], a["pj_sc"], TH.coeffs_ij(p), p.eps, n, R)
     return {f: a[f] for f in COL_PLANES}
+
+
+def run_worklist(d, device="cpu", fn=None):
+    a = _t(d, device)
+    p = BCPNNParams()
+    now = torch.tensor(NOW, dtype=torch.int32, device=device)
+    if fn is None:
+        ops.worklist_row_update(*(a[f] for f in COL_PLANES), a["rows"],
+                                a["nv"], now, a["counts"], a["zj"], a["p_i"],
+                                a["pj"], TH.coeffs_ij(p), p.eps)
+    else:
+        fn(*(a[f] for f in COL_PLANES), a["rows"], a["nv"], now.reshape(1),
+           a["counts"], a["zj"], a["p_i"], a["pj"], TH.coeffs_ij(p), p.eps)
+    return {f: a[f] for f in COL_PLANES}
+
+
+def run_rowblock(d, device="cpu", fn=None):
+    a = _t(d, device)
+    p = BCPNNParams()
+    now = torch.tensor([NOW], dtype=torch.int32, device=device)
+    outs = (fn or ops.row_update)(
+        a["zij"], a["eij"], a["pij"], a["tij"], now, a["counts"], a["zj"],
+        a["p_i"], a["pj"], TH.coeffs_ij(p), p.eps)
+    return dict(zip(COL_PLANES, outs))
+
+
+def run_colblock(d, device="cpu", fn=None):
+    a = _t(d, device)
+    p = BCPNNParams()
+    now = torch.tensor([NOW], dtype=torch.int32, device=device)
+    outs = (fn or ops.col_update)(
+        a["zij"], a["eij"], a["pij"], a["tij"], now, a["zi_t"], a["p_i"],
+        a["pj_sc"], TH.coeffs_ij(p), p.eps)
+    return dict(zip(COL_PLANES, outs))
+
+
+RUNS = {"wl": run_worklist, "rb": run_rowblock, "cb": run_colblock}
 
 
 def assert_outputs(got, want, names):
@@ -241,6 +379,28 @@ def test_fused_col_update_matches_jax(cases, case):
     assert changed.sum() <= 2
 
 
+@pytest.mark.parametrize("case", ["swl", "rwl", "srb", "rrb", "scb", "rcb"])
+def test_unfused_and_block_updates_match_jax(cases, case):
+    """`ops.worklist_row_update`, `ops.row_update` and `ops.col_update`
+    on the CPU against the Pallas kernels (s*) and the cell oracle (r*)."""
+    ins, ref = cases
+    got = RUNS[case[1:]](ins[case])
+    assert_outputs(got, {f: ref[f"{case}_{f}"] for f in COL_PLANES},
+                   COL_PLANES)
+
+
+def test_worklist_entries_past_nv_write_nothing(cases):
+    d = cases[0]["rwl"]
+    got = run_worklist(d)
+    nv = int(d["nv"][0])
+    touched = (got["tij"].numpy() != d["tij"]).any(axis=1)
+    untouched = np.setdiff1d(np.arange(d["zij"].shape[0]), d["rows"][:nv])
+    assert not touched[untouched].any()
+    for f in COL_PLANES:
+        np.testing.assert_array_equal(got[f].numpy()[untouched],
+                                      d[f][untouched], err_msg=f)
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -273,11 +433,34 @@ def test_cuda_col_kernel_matches_plain(dims):
                    COL_PLANES)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [SMALL, RODENT], ids=["small", "rodent"])
+@pytest.mark.parametrize("kind", ["worklist_row_update", "row_update",
+                                  "col_update"])
+def test_cuda_unfused_and_block_kernels_match_plain(kind, dims):
+    dev = _cuda()
+    n, R, C, A = (dims[k] for k in ("n", "R", "C", "A"))
+    d, run = {"worklist_row_update": (worklist_inputs(17, n, R, C, A),
+                                      run_worklist),
+              "row_update": (rowblock_inputs(18, n, R, C, A), run_rowblock),
+              "col_update": (colblock_inputs(19, R), run_colblock)}[kind]
+    before = BU.launches[kind]
+    got = run(d, dev, getattr(BU, f"{kind}_kernel"))
+    torch.cuda.synchronize()
+    assert BU.launches[kind] == before + 1
+    want = run(d, dev, getattr(BU, f"{kind}_plain"))
+    assert_outputs(got, {k: v.cpu().numpy() for k, v in want.items()},
+                   COL_PLANES)
+
+
 def _no_plain(monkeypatch):
     def plain(*a, **k):
         raise AssertionError("a non-CPU tensor reached the plain version")
-    monkeypatch.setattr(BU, "fused_row_update_plain", plain)
-    monkeypatch.setattr(BU, "fused_col_update_plain", plain)
+    for kind in BU.launches:
+        monkeypatch.setattr(BU, f"{kind}_plain", plain)
+
+
+NEW_RUNS = ((run_worklist, worklist_inputs), (run_rowblock, rowblock_inputs))
 
 
 def test_non_cpu_tensors_never_take_the_plain_path(monkeypatch):
@@ -289,6 +472,11 @@ def test_non_cpu_tensors_never_take_the_plain_path(monkeypatch):
     with pytest.raises(ValueError, match="CUDA tensors"):
         run_col(col_inputs(8, SMALL["n"], SMALL["R"], SMALL["C"]),
                 SMALL["n"], SMALL["R"], "meta")
+    for run, inputs in NEW_RUNS:
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            run(inputs(9, **SMALL), "meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        run_colblock(colblock_inputs(10, SMALL["R"]), "meta")
 
 
 @pytest.mark.cuda
@@ -306,3 +494,8 @@ def test_cuda_launch_failure_propagates(monkeypatch):
     with pytest.raises(RuntimeError, match="launcher unavailable"):
         run_col(col_inputs(10, SMALL["n"], SMALL["R"], SMALL["C"]),
                 SMALL["n"], SMALL["R"], dev)
+    for run, inputs in NEW_RUNS:
+        with pytest.raises(RuntimeError, match="launcher unavailable"):
+            run(inputs(11, **SMALL), dev)
+    with pytest.raises(RuntimeError, match="launcher unavailable"):
+        run_colblock(colblock_inputs(12, SMALL["R"]), dev)

@@ -1,13 +1,16 @@
 """Rules of the PyTorch port: it imports neither JAX nor the JAX package,
-it runs on CUDA unless the caller asks for the CPU, and every part that is
-not ported yet raises instead of running something else."""
+it runs on CUDA unless the caller asks for the CPU, its flags select the
+backends the JAX package's flags select, and every part that is not ported
+yet raises instead of running something else."""
 import ast
 import pathlib
 
 import pytest
 import torch
 
-from repro_torch.core import Simulator, select_backend
+from repro_torch.core import (DenseBackend, Simulator, WorklistBackend,
+                              select_backend)
+from repro_torch.core.params import human_scale, rodent_scale
 from repro_torch.core.params import test_scale as tiny_scale
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -39,13 +42,42 @@ def test_simulator_defaults_to_cuda():
             Simulator(p)
 
 
-@pytest.mark.parametrize("kw", [dict(eager=True), dict(merged=True),
-                                dict(layout="blocked"), dict(worklist=False),
-                                dict(fused=False), dict(fused_cols=False)],
+@pytest.mark.parametrize("kw", [dict(merged=True), dict(layout="blocked")],
                          ids=lambda kw: next(iter(kw)))
 def test_unported_backends_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         select_backend(tiny_scale(), **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Simulator(tiny_scale(), device="cpu", **kw)
+
+
+SMALL = tiny_scale()                   # R*C = 1024: the dense backend
+LARGE = rodent_scale(4)                # R*C = 84000: the worklist backend
+
+
+@pytest.mark.parametrize("p,kw,want", [
+    (SMALL, dict(eager=True), DenseBackend(mode="eager")),
+    (LARGE, dict(eager=True), DenseBackend(mode="eager")),
+    (LARGE, dict(worklist=False), DenseBackend(mode="lazy")),
+    (LARGE, dict(fused=False), WorklistBackend(fused=False, fused_cols=True)),
+    (LARGE, dict(fused_cols=False),
+     WorklistBackend(fused=True, fused_cols=False)),
+    (SMALL, dict(), DenseBackend(mode="lazy")),
+    (SMALL, dict(worklist=True), WorklistBackend(fused=True, fused_cols=True)),
+    (SMALL, dict(worklist=True, fused=False, fused_cols=False),
+     WorklistBackend(fused=False, fused_cols=False)),
+    (LARGE, dict(), WorklistBackend(fused=True, fused_cols=True)),
+    (human_scale(4), dict(), WorklistBackend(fused=True, fused_cols=True)),
+], ids=["eager", "eager_large", "worklist", "fused", "fused_cols",
+        "small_default", "small_worklist", "small_unfused", "rodent_default",
+        "human_default"])
+def test_select_backend(p, kw, want):
+    """The JAX package's selection: eager is dense; otherwise the size
+    guard R*C > 65536 takes the worklist backend unless `worklist=`
+    forces either; `fused` / `fused_cols` pick its kernels."""
+    got = select_backend(p, **kw)
+    assert type(got) is type(want) and got == want
+    assert Simulator(p, n_hcu=2, device="cpu", **kw).backend == want
 
 
 @pytest.mark.parametrize("method", ["run_sharded", "save", "load"])
