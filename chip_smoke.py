@@ -36,7 +36,35 @@ toolkit. Phases, in order; any failure exits non-zero:
                (eager=True) runs 20 ticks beside the main path's first 20
                from the same key and input: the fired histories must be
                equal.
-  6. report  — one JSON line of the kernels, then the last line
+  6. flash   — the flash-attention kernel against its plain version on
+               the card at the qwen2-1.5b prefill shape (BH 48 = 4 x 12
+               heads, Sq 1024, Skv 1152, kv_len 1024, hd 128, causal) in
+               bf16 and in float32, and at one gemma2-9b layer (BH 16,
+               Sq = Skv = 4608, hd 256, softcap 50, window 4096, scale
+               1/16) in bf16 and in float32: bf16 rtol 8e-3 (one bf16 ulp),
+               atol 1e-4; float32 rtol = atol = 2e-5. Each timed as
+               in phase 3; at the qwen2 shape also
+               `torch.nn.functional.scaled_dot_product_attention` on the same
+               q with k / v cut to kv_len (the library yardstick; the port
+               never calls it).
+  7. lm      — the LM fixture (tests/fixtures/lm_serve_smoke.npz, qwen2-1.5b
+               and gemma2-9b smoke configs at float32 compute) served on the
+               card through the kernel: prefill logits within atol 2e-5 of
+               the JAX package's, greedy tokens equal. Then qwen2-1.5b at
+               full width (28 layers, d_model 1536, vocab 151936, 1.54 B
+               float32 parameters from seed 0) with attn_impl="pallas_flash":
+               `ServingEngine(batch_slots=4, max_len=1152)` serves 8 requests
+               of 1024 random prompt tokens, 32 new tokens each, greedy (2
+               waves). The launch counters are set to 0 just before the run;
+               the flash kernel must launch exactly 28 x 2 times and no BCPNN
+               kernel at all; every token lies in the vocabulary. One more
+               wave's prefill runs under CUDA sync-debug mode "error", and
+               its logits are held against the same weights under
+               attn_impl="dense": max |diff| / max |dense| < 0.03. Prints ms
+               per prefill wave, the flash kernel's share of a prefill's
+               device time (torch.profiler), ms per decode step, tokens/s
+               and peak GiB.
+  8. report  — one JSON line of the kernels, then the last line
                {"ok": true, "device": {...}}.
 
 It imports the port only (never JAX or the JAX package) and exits non-zero
@@ -56,6 +84,7 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 SECTOR = 32                   # bytes per DRAM/L2 sector
 OPS_PER_CELL = 33             # float32 ops of cell_math, transcendentals as one
 NOW = 100
@@ -364,19 +393,21 @@ REPLACES = {
     "worklist_update_kernel_call": "src/repro/kernels/bcpnn_update.py:237",
     "row_update_kernel_call": "src/repro/kernels/bcpnn_update.py:170",
     "col_update_kernel_call": "src/repro/kernels/bcpnn_update.py:523",
+    "flash_attention": "src/repro/kernels/flash_attention.py:82",
 }
 
 
-def entry(name, errs, ms, plain_ms, nbytes, nops, tpu_fn):
+def entry(name, errs, ms, plain_ms, nbytes, nops, tpu_fn,
+          source="src/repro_torch/kernels/csrc/bcpnn_update.cu",
+          ops_per_s=FP32_OPS_PER_S, library_ms=None):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_OPS_PER_S * 1e3
-    return {"name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/bcpnn_update.cu",
+    t_ops = nops / ops_per_s * 1e3
+    return {"name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[tpu_fn], "launches": None,
             "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "library_ms": library_ms}
 
 
 # fixture -> the flags it was captured with (tests/fixtures/capture_head.py)
@@ -428,6 +459,21 @@ def phase_fixtures(dev):
               f"({max(gaps, key=gaps.get)})")
 
 
+def reset_launches():
+    """Every kernel's launch counter to 0."""
+    from repro_torch.kernels import bcpnn_update as BU
+    from repro_torch.kernels import flash_attention as FA
+    for counts in (BU.launches, FA.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_launches():
+    from repro_torch.kernels import bcpnn_update as BU
+    from repro_torch.kernels import flash_attention as FA
+    return {**BU.launches, **FA.launches}
+
+
 # path -> (Simulator flags, timed ticks, the kernels it must launch once
 # per tick; every other kernel must not launch)
 PATHS = {
@@ -469,7 +515,6 @@ def run_path(name, p, ext):
     Returns (launch counts, µs/tick, profile summary)."""
     import torch
     from repro_torch.core import Simulator
-    from repro_torch.kernels import bcpnn_update as BU
     kw, ticks, expect = PATHS[name]
     t0 = time.perf_counter()
     sim = Simulator(p, key=0, **kw)              # the default device: CUDA
@@ -479,8 +524,7 @@ def run_path(name, p, ext):
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     sim.run(ext[:WARM_TICKS])
     torch.cuda.synchronize()
-    for k in BU.launches:
-        BU.launches[k] = 0
+    reset_launches()
     # any operation that waits for the device inside the ticks raises here
     torch.cuda.set_sync_debug_mode("error")
     t0 = time.perf_counter()
@@ -488,7 +532,7 @@ def run_path(name, p, ext):
     torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(BU.launches)
+    counts = read_launches()
     for k, c in counts.items():
         want = ticks if k in expect else 0
         if c != want:
@@ -642,6 +686,283 @@ def profile_ticks(name, sim, ext, kernels):
             "kernel_us_per_tick": ours, "phase_device_us_per_tick": phases}
 
 
+# flash attention: name -> (BH, Sq, Skv, hd, dtype, flash kwargs); the
+# first is the shape qwen2-1.5b's prefill gives the kernel in phase 7
+FLASH_SHAPES = {
+    "qwen2-1.5b prefill bf16": (48, 1024, 1152, 128, "bfloat16",
+                                dict(scale=128 ** -0.5, causal=True,
+                                     kv_len=1024)),
+    "qwen2-1.5b prefill f32": (48, 1024, 1152, 128, "float32",
+                               dict(scale=128 ** -0.5, causal=True,
+                                    kv_len=1024)),
+    "gemma2-9b layer bf16": (16, 4608, 4608, 256, "bfloat16",
+                             dict(scale=1 / 16, causal=True, window=4096,
+                                  softcap=50.0)),
+    "gemma2-9b layer f32": (16, 4608, 4608, 256, "float32",
+                            dict(scale=1 / 16, causal=True, window=4096,
+                                 softcap=50.0)),
+}
+# (rtol, atol) of the kernel against its plain version: both compute in
+# float32, so bf16 outputs differ by at most one rounding (one ulp, < 2^-7
+# relative), float32 outputs by summation order
+FLASH_TOL = {"bfloat16": (8e-3, 1e-4), "float32": (2e-5, 2e-5)}
+
+
+def valid_pairs(Sq, Skv, causal=True, window=None, kv_len=None, **_):
+    """(query, key) pairs the mask lets through, per head."""
+    kv_len = Skv if kv_len is None else kv_len
+    q = np.arange(Sq)
+    lo = np.maximum(0, q - window + 1) if window is not None else 0
+    hi = np.minimum(kv_len, q + 1) if causal else np.full(Sq, kv_len)
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def phase_flash(dev):
+    """Phase 6: the flash kernel against its plain version, then timed,
+    at the qwen2-1.5b prefill shape and one gemma2-9b layer. Returns the
+    report entry of the qwen2 bf16 shape (the main path's)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    flush = torch.ones(64 << 20, dtype=torch.uint8, device=dev)
+    report = None
+    for name, (BH, Sq, Skv, hd, dtype, kw) in FLASH_SHAPES.items():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(BH, n, hd, generator=gen, device=dev).to(dt)
+                   for n in (Sq, Skv, Skv))
+        got = FA.flash_attention_kernel(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = FA.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        rtol, atol = FLASH_TOL[dtype]
+        err = check_close(f"flash {name}", got.float(), want.float(),
+                          rtol=rtol, atol=atol)
+        del got, want
+        ms = time_cuda(lambda: FA.flash_attention_kernel(q, k, v, **kw), flush)
+        plain_ms = time_cuda(lambda: FA.flash_attention_plain(q, k, v, **kw),
+                             flush)
+        lib_ms = None
+        if name.startswith("qwen2") and dtype == "bfloat16":
+            # (1, BH, S, hd): the fused backends take 4-d inputs only
+            L = kw["kv_len"]
+            q4 = q[None]
+            kc, vc = (t[None, :, :L].contiguous() for t in (k, v))
+            lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+                q4, kc, vc, is_causal=True, scale=kw["scale"]), flush)
+        # q and o (Sq rows each), once; k and v (the GQA-expanded copies
+        # the model passes) only up to kv_len: later rows are masked out
+        # and never read
+        kv_rows = min(kw.get("kv_len", Skv), Skv)
+        nbytes = 2 * BH * hd * (Sq + kv_rows) * q.element_size()
+        nops = 4 * hd * BH * valid_pairs(Sq, Skv, **kw)
+        ops_per_s = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
+        e = entry("flash_attention", {"out": err}, ms, plain_ms, nbytes, nops,
+                  "flash_attention",
+                  source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                  ops_per_s=ops_per_s, library_ms=lib_ms)
+        print(f"flash {name}: max abs error {err:.3g} (rtol {rtol}, atol "
+              f"{atol}), kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+              f"{nbytes} bytes, {nops} flop, bound {e['bound_ms']:.4f} ms "
+              f"({e['bound_by']})")
+        report = report or e
+        del q, k, v
+    torch.cuda.empty_cache()
+    return report
+
+
+LM_FIXTURE_ARCHS = ("qwen2-1.5b", "gemma2-9b")
+LM_FIXTURE_ATOL = 2e-5       # float32 logits, |logits| < 0.6
+LM_SLOTS, LM_REQUESTS, LM_PROMPT, LM_NEW, LM_MAX_LEN = 4, 8, 1024, 32, 1152
+LM_PROFILE_STEPS = 4
+
+
+def phase_lm_fixture(dev):
+    """Phase 7, first part: the LM fixture served on the card through the
+    kernel."""
+    import dataclasses
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Request, ServingEngine
+    d = dict(np.load(ROOT / "tests" / "fixtures" / "lm_serve_smoke.npz"))
+    prompts = d["prompts"]
+    for arch in LM_FIXTURE_ARCHS:
+        pre = f"{arch}/param"
+        flat = {k[len(pre):]: (d[k].astype(np.uint32) << 16).view(np.float32)
+                for k in d if k.startswith(pre)}
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  compute_dtype="float32",
+                                  attn_impl="pallas_flash")
+        model = convert.lm_model_from_numpy(flat, cfg, dev)
+        reset_launches()
+        with torch.no_grad():
+            logits, _ = model.prefill(
+                {"tokens": torch.from_numpy(prompts).long().to(dev)},
+                model.init_cache(len(prompts), 256))
+        gap = float(np.abs(logits.cpu().numpy() - d[f"{arch}/logits"]).max())
+        if not gap <= LM_FIXTURE_ATOL:
+            fail(f"LM fixture {arch}: prefill logits gap {gap}")
+        eng = ServingEngine(model, len(prompts), 256)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid, p, 8))
+        toks = np.array([r.out for r in sorted(eng.run(), key=lambda r: r.rid)])
+        if not np.array_equal(toks, d[f"{arch}/tokens"]):
+            fail(f"LM fixture {arch}: greedy tokens differ from the JAX "
+                 f"package's: {toks.tolist()}")
+        n = read_launches()["flash_attention"]
+        if n != 2 * cfg.n_layers:
+            fail(f"LM fixture {arch}: flash launched {n} times, expected "
+                 f"{2 * cfg.n_layers}")
+        print(f"LM fixture {arch} on the card: prefill logits within {gap:.3g} "
+              f"of the JAX package's, {toks.size} greedy tokens equal, "
+              f"{n} flash launches")
+
+
+def timed(fn, bucket):
+    """fn, with the host time of each call (from a synchronised start to a
+    synchronised end) appended to bucket."""
+    import torch
+
+    def wrapper(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        bucket.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return wrapper
+
+
+def device_rows(prof):
+    """(kernel name, device ms) of a profile, and their sum."""
+    from torch.autograd import DeviceType
+    dev_t = lambda e: getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0))
+    rows = [(e.key, dev_t(e) / 1e3) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_t(e) > 0]
+    return rows, sum(t for _, t in rows)
+
+
+def print_rows(rows, per=1):
+    for key, t in sorted(rows, key=lambda r: -r[1])[:6]:
+        print(f"  device {t / per:9.3f} ms  {key[:80]}")
+
+
+def phase_lm(dev, smi):
+    """Phase 7, second part: qwen2-1.5b at full width served through the
+    flash kernel. Returns the flash kernel's launch count in the run."""
+    import dataclasses
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Request, ServingEngine
+    from repro_torch.models.transformer import Model
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), attn_impl="pallas_flash")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, seed=0)                  # the default device: CUDA
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in model.parameters())
+    print(f"lm: {cfg.arch_id} {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads (kv {cfg.n_kv}), head_dim {cfg.head_dim}, "
+          f"vocab {cfg.vocab}: {n_params} parameters ({cfg.param_dtype}, "
+          f"compute {cfg.compute_dtype}), init {time.perf_counter() - t0:.2f} s")
+    eng = ServingEngine(model, LM_SLOTS, LM_MAX_LEN)
+    pre_ms, dec_ms = [], []
+    eng.prefill = timed(eng.prefill, pre_ms)
+    eng.decode = timed(eng.decode, dec_ms)
+    gen = np.random.default_rng(0)
+    prompts = [gen.integers(0, cfg.vocab, LM_PROMPT) for _ in range(LM_REQUESTS)]
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid, p, LM_NEW))
+    reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    waves = -(-LM_REQUESTS // LM_SLOTS)
+    for k, c in counts.items():
+        want = cfg.n_layers * waves if k == "flash_attention" else 0
+        if c != want:
+            fail(f"lm: {k} launched {c} times, expected {want}")
+    toks = [t for r in done for t in r.out]
+    if len(done) != LM_REQUESTS or len(toks) != LM_REQUESTS * LM_NEW:
+        fail(f"lm: {len(done)} requests, {len(toks)} tokens served")
+    if not all(0 <= t < cfg.vocab for t in toks):
+        fail("lm: a token outside the vocabulary")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ntok = len(toks)
+    print(f"lm serve [{smi}]: {LM_REQUESTS} requests x {LM_PROMPT} prompt + "
+          f"{LM_NEW} new tokens in {waves} waves of {LM_SLOTS}: {wall:.3f} s, "
+          f"{ntok / wall:.1f} tokens/s; prefill ms per wave "
+          f"{', '.join(f'{t:.2f}' for t in pre_ms)}; decode ms per step median "
+          f"{statistics.median(dec_ms):.3f} (min {min(dec_ms):.3f}, max "
+          f"{max(dec_ms):.3f}, {len(dec_ms)} steps); peak "
+          f"{peak:.2f} GiB allocated; launches {json.dumps(counts)}")
+
+    # one more wave's prefill: no host synchronisation inside, flash
+    # against dense on the same weights, the kernel's share of device time
+    batch, pad = eng.wave_inputs([Request(0, p, 1) for p in prompts[:LM_SLOTS]])
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        caches = model.init_cache(LM_SLOTS, LM_MAX_LEN)
+        torch.cuda.set_sync_debug_mode("error")
+        logits, _ = model.prefill(batch, caches, pad)
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        dense = Model(dataclasses.replace(cfg, attn_impl="dense"),
+                      device="meta")
+        dense.load_state_dict(model.state_dict(), assign=True)
+        want, _ = dense.prefill(batch, dense.init_cache(LM_SLOTS, LM_MAX_LEN))
+        rel = float((logits.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        del dense, want
+        if not rel < 0.03:
+            fail(f"lm: flash vs dense prefill logits rel err {rel}")
+        if not bool(torch.isfinite(logits.float()).all()):
+            fail("lm: non-finite prefill logits")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            caches = model.init_cache(LM_SLOTS, LM_MAX_LEN)
+            logits, caches = model.prefill(batch, caches, pad)
+            torch.cuda.synchronize()
+        rows, total = device_rows(prof)
+        flash = sum(t for k, t in rows if "flash_fwd_kernel" in k)
+        share = (f"flash kernel {flash:.3f} ms of {total:.3f} ms device "
+                 f"time ({flash / total:.1%})" if total else
+                 "flash kernel share not measured (no CUDA activity in the "
+                 "trace)")
+        print(f"lm prefill wave [{smi}]: sync-debug 'error' passed; flash vs "
+              f"dense logits rel err {rel:.3g} (< 0.03); {share}")
+        print_rows(rows)
+        # decode steps on that prefill's caches: host and device time
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(LM_PROFILE_STEPS):
+                logits, caches = model.decode_step(tok, LM_PROMPT + i, caches,
+                                                   pad)
+                tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / LM_PROFILE_STEPS
+        rows, total = device_rows(prof)
+        ops = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+        print(f"lm decode [{smi}]: {LM_PROFILE_STEPS} profiled steps, "
+              f"{host:.3f} ms per step on the host clock (profiled), device "
+              f"busy {total / LM_PROFILE_STEPS:.3f} ms per step in "
+              f"{ops / LM_PROFILE_STEPS:.0f} device ops per step")
+        print_rows(rows, LM_PROFILE_STEPS)
+    del model, eng, caches, logits
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -669,8 +990,13 @@ def main():
     report = phase_kernels(human_scale(n_hcu=256), dev)
     phase_fixtures(dev)
     phase_paths(report)
-    print("kernels' library_ms is null: no single PyTorch call computes "
-          "a cell-math pass")
+    flash = phase_flash(dev)
+    phase_lm_fixture(dev)
+    flash["launches"] = phase_lm(dev, smi)
+    report.append(flash)
+    print("the BCPNN kernels' library_ms is null: no single PyTorch call "
+          "computes a cell-math pass; flash_attention's is "
+          "scaled_dot_product_attention at the qwen2-1.5b bf16 shape")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,16 @@ reference the port is tested against. The port imports neither JAX nor
 `repro`. Its entry points run on CUDA unless the caller passes
 ``device="cpu"``; there, every kernel runs as its plain PyTorch version.
 
-Ported so far: the lazy worklist BCPNN tick on one device
-(`repro_torch.core.engine.Simulator`), with the row and column phases as
-hand-written Hopper kernels (`repro_torch.kernels`). ROADMAP.md lists what
-is still to port.
+Ported so far:
+
+* the local lazy and eager BCPNN tick on one device, with every backend
+  the JAX package has for it (`repro_torch.core.engine.Simulator`), and
+  the five BCPNN update kernels as hand-written Hopper kernels;
+* the LM serving path of the dense-family transformer
+  (`repro_torch.models`, `repro_torch.train.serve_step`,
+  `repro_torch.launch.serve.ServingEngine`), with prefill attention as a
+  hand-written Hopper flash-attention kernel.
+
+All six kernels live in `repro_torch.kernels`. ROADMAP.md lists what is
+still to port.
 """

@@ -1,5 +1,5 @@
-"""Carry network state and connectivity between the JAX package and the
-port as plain numpy arrays.
+"""Carry network state and connectivity, and LM weights, between the JAX
+package and the port as plain numpy arrays.
 
 In BCPNN the synaptic planes ARE the learned weights, so this is how a run
 of one package continues in the other, and how the tests start both from
@@ -9,6 +9,13 @@ with ij planes (H*R, C) and i-vectors (H*R,), ``delay_rows``,
 ``delay_count``, ``t``, ``drops_in``, ``drops_fire``), plus ``base_key``
 (two uint32 words) and ``drops_route``; the connectivity arrays are
 ``conn_dest_hcu``, ``conn_dest_row`` and ``conn_delay``.
+
+LM parameters travel as the JAX package's parameter tree flattened to
+numpy arrays keyed by `jax.tree_util.keystr` paths (``['embed']``,
+``['stack'][0][1]['attn']['wq']``, ...), where each pattern position of a
+stack segment holds its layers stacked along a leading repeats axis; the
+port keeps one module per layer (`repro_torch.models.transformer.Model`,
+state-dict names ``embed``, ``layers.<i>.attn.wq``, ...).
 """
 from __future__ import annotations
 
@@ -18,6 +25,8 @@ import torch
 from repro_torch.core import hcu as H
 from repro_torch.core import network as N
 from repro_torch.core.params import BCPNNParams
+from repro_torch.models.base import ArchConfig
+from repro_torch.models.transformer import Model, build_stack_spec
 
 _SCALARS = ("t", "drops_in", "drops_fire", "drops_route")
 
@@ -78,3 +87,63 @@ def conn_to_numpy(conn: N.Connectivity) -> dict:
     return {"conn_dest_hcu": conn.dest_hcu.cpu().numpy(),
             "conn_dest_row": conn.dest_row.cpu().numpy(),
             "conn_delay": conn.delay.cpu().numpy()}
+
+
+def _layer_slots(cfg: ArchConfig):
+    """(segment, repeat, pattern position) of every layer, in stack order."""
+    return [(si, r, pi) for si, (pattern, repeats) in
+            enumerate(build_stack_spec(cfg)) for r in range(repeats)
+            for pi in range(len(pattern))]
+
+
+def _jax_path(name: str, slots):
+    """The JAX keystr path of a port state-dict name, and the repeat index
+    to take from its stacked leaf (None for an unstacked leaf)."""
+    parts = name.split(".")
+    if parts[0] != "layers":
+        return "".join(f"['{p}']" for p in parts), None
+    si, r, pi = slots[int(parts[1])]
+    return (f"['stack'][{si}][{pi}]" + "".join(f"['{p}']" for p in parts[2:]),
+            r)
+
+
+def lm_params_from_numpy(flat, cfg: ArchConfig, device) -> dict:
+    """The port's state dict (name -> tensor on ``device``) from the JAX
+    package's flattened LM parameters (keystr path -> numpy array). Every
+    leaf must be used and every shape must match."""
+    slots = _layer_slots(cfg)
+    out, used = {}, set()
+    for name, t in Model(cfg, device="meta").state_dict().items():
+        key, r = _jax_path(name, slots)
+        if key not in flat:
+            raise KeyError(f"JAX leaf {key} (for {name}) is missing")
+        a = np.asarray(flat[key])
+        a = a if r is None else a[r]
+        if a.shape != tuple(t.shape):
+            raise ValueError(f"{key}: shape {a.shape}, expected {tuple(t.shape)}")
+        out[name] = torch.tensor(a, dtype=t.dtype, device=device)
+        used.add(key)
+    extra = sorted(set(flat) - used)
+    if extra:
+        raise ValueError(f"JAX leaves the port has no place for: {extra}")
+    return out
+
+
+def lm_params_to_numpy(model: Model) -> dict:
+    """The inverse of `lm_params_from_numpy`: the JAX package's flattened
+    parameters, each pattern position's layers stacked along repeats."""
+    slots = _layer_slots(model.cfg)
+    stacks: dict[str, dict[int, np.ndarray]] = {}
+    for name, t in model.state_dict().items():
+        key, r = _jax_path(name, slots)
+        stacks.setdefault(key, {})[r] = t.detach().cpu().numpy()
+    return {key: by_r[None] if None in by_r else
+            np.stack([by_r[r] for r in sorted(by_r)])
+            for key, by_r in stacks.items()}
+
+
+def lm_model_from_numpy(flat, cfg: ArchConfig, device) -> Model:
+    """A `Model` on ``device`` holding the JAX package's parameters."""
+    model = Model(cfg, device="meta")
+    model.load_state_dict(lm_params_from_numpy(flat, cfg, device), assign=True)
+    return model

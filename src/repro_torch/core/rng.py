@@ -127,7 +127,10 @@ def gumbel(key, shape=()):
 
 def categorical(key, logits):
     """`jax.random.categorical` along the last axis (Gumbel argmax; the
-    first maximum wins, as in `jnp.argmax`). key (..., 2) pairs with
-    logits (..., C); returns int32 of the batch shape."""
-    g = gumbel(key, (logits.shape[-1],))
+    first maximum wins, as in `jnp.argmax`). key (..., 2) pairs with the
+    leading dims of logits, and each key draws the rest of logits' shape:
+    keys (H, 2) with logits (H, C) draw (C,) each, one key (2,) draws all
+    of (B, C), as `jax.random.categorical` does with one key. Returns
+    int32 of logits' shape without its last axis."""
+    g = gumbel(key, tuple(logits.shape[key.dim() - 1:]))
     return torch.argmax(g + logits, dim=-1).to(torch.int32)

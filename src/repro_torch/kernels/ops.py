@@ -1,5 +1,5 @@
-"""Device dispatch for the BCPNN update kernels (the port of
-`repro.kernels.ops`).
+"""Device dispatch for the port's kernels (the port of `repro.kernels.ops`):
+the BCPNN update kernels and flash attention.
 
 The tensors' device decides, and nothing else: planes on the CPU take the
 plain PyTorch version (the caller asked for the CPU); planes anywhere else
@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core.traces import DecayCoeffs
 from repro_torch.kernels import bcpnn_update as BU
+from repro_torch.kernels import flash_attention as FA
 
 
 def _now(now, device):
@@ -103,3 +104,15 @@ def col_update(zij, eij, pij, tij, now, zi_t, p_i, pj_sc,
     fn = _dispatch(BU.col_update_plain, BU.col_update_kernel, zij.device)
     return fn(zij, eij, pij, tij, _now(now, zij.device), zi_t, p_i, pj_sc,
               coeffs, eps)
+
+
+def flash_attention(q, k, v, *, scale: float, causal: bool = True,
+                    window=None, softcap=None, kv_len=None):
+    """Forward attention, q (BH, Sq, hd), k / v (BH, Skv, hd) -> (BH, Sq,
+    hd) in q's dtype; Sq and Skv multiples of 128; ``kv_len`` (a Python
+    int, default Skv) bounds the valid keys. GQA callers fold (batch,
+    kv head, group) into BH with k / v repeated."""
+    fn = _dispatch(FA.flash_attention_plain, FA.flash_attention_kernel,
+                   q.device)
+    return fn(q, k, v, scale=scale, causal=causal, window=window,
+              softcap=softcap, kv_len=kv_len)

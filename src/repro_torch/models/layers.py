@@ -1,0 +1,248 @@
+"""Shared transformer layers (the port of `repro.models.layers`): RMSNorm,
+RoPE, GQA attention with a KV cache, gated MLP.
+
+Functions take their parameters as a mapping of tensors (an
+`nn.ParameterDict` inside the model, a plain dict in the tests), in the
+JAX package's layouts: activations (B, S, D), heads (B, S, H, hd), caches
+(B, max_len, Kv, hd). Parameters are float32 and are cast to
+``cfg.cdtype`` at every matmul; logits, softmax and PV run in float32.
+The JAX package's sharding hints are identity without a mesh and are left
+out.
+
+Attention covers, through arguments: GQA with any kv-head count, QKV bias
+(qwen2), logit softcap (gemma2), sliding windows (gemma2's local layers),
+partial rotary (stablelm), and cached prefill / decode with ragged left
+padding. Prefill takes the
+flash kernel (`repro_torch.kernels.ops.flash_attention`) under
+``attn_impl="pallas_flash"`` when its shapes allow, else the chunked or
+the dense path, chosen as `repro.models.layers.attend` chooses.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models.base import ArchConfig, dense_init
+
+NEG_INF = -1e30
+
+
+def rms_norm(x, w, eps: float):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + w.float())).to(dt)
+
+
+def _rope_freqs(positions, dim: int, theta: float, dtype):
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                        device=positions.device) / dim))
+    ang = positions.float()[..., None] * inv                 # (..., dim/2)
+    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+
+
+def apply_rope(x, positions, theta: float, rotary_pct: float = 1.0):
+    """x: (B, S, H, hd); positions: (B, S) or (S,). Rotates INTERLEAVED
+    pairs (x[..., ::2], x[..., 1::2]) of the first ``rotary_pct`` of the
+    head dims, as the JAX package does (not HF's rotate_half)."""
+    hd = x.shape[-1]
+    rot = int(hd * rotary_pct) // 2 * 2
+    if rot == 0:
+        return x
+    xr, xp = x[..., :rot], x[..., rot:]
+    cos, sin = _rope_freqs(positions, rot, theta, x.dtype)   # (B,S,rot/2)
+    cos = cos[:, :, None, :] if cos.dim() == 3 else cos[None, :, None, :]
+    sin = sin[:, :, None, :] if sin.dim() == 3 else sin[None, :, None, :]
+    x1, x2 = xr[..., ::2], xr[..., 1::2]
+    o1 = x1 * cos - x2 * sin
+    o2 = x2 * cos + x1 * sin
+    out = torch.stack([o1, o2], dim=-1).reshape(xr.shape)
+    return torch.cat([out, xp], dim=-1) if rot < hd else out
+
+
+class KVCache(NamedTuple):
+    """k, v (B, max_len, Kv, hd) in the compute dtype; ``length`` the valid
+    prefix, a Python int (so the flash kernel gets it without a device
+    read). `attend` writes the new keys and values into k and v IN PLACE
+    and returns the cache with the longer length."""
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int
+
+
+def init_attn(cfg: ArchConfig, generator, device, d_model=None):
+    D = d_model or cfg.d_model
+    H, Kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    init = lambda shape: nn.Parameter(dense_init(shape, cfg.pdtype, generator,
+                                                 device))
+    p = {"wq": init((D, H * hd)), "wk": init((D, Kv * hd)),
+         "wv": init((D, Kv * hd)), "wo": init((H * hd, D))}
+    if cfg.qkv_bias:
+        for name, n in (("bq", H * hd), ("bk", Kv * hd), ("bv", Kv * hd)):
+            p[name] = nn.Parameter(torch.zeros(n, dtype=cfg.pdtype,
+                                               device=device))
+    return nn.ParameterDict(p)
+
+
+def _sdpa(q, k, v, mask, softcap, scale):
+    """q: (B,Sq,Kv,G,hd)  k,v: (B,Skv,Kv,hd)  mask: (B|1, Sq, Skv) bool."""
+    logits = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float()) * scale
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    logits = torch.where(mask[:, None, None, :, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.float())
+    return out.to(v.dtype)
+
+
+def _sdpa_chunked(q, k, v, mask, softcap, scale, chunk: int):
+    """Online-softmax attention over KV chunks of ``chunk`` keys: the math
+    of `_sdpa` without the (Sq, Skv) logits. Shapes as in `_sdpa`."""
+    B, Sq, Kv, G, hd = q.shape
+    Skv = k.shape[1]
+    dev = q.device
+    qf = q.float()
+    m = torch.full((B, Kv, G, Sq), float("-inf"), dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((B, Kv, G, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Kv, G, Sq, hd), dtype=torch.float32, device=dev)
+    for c0 in range(0, Skv, chunk):
+        kb, vb = k[:, c0:c0 + chunk].float(), v[:, c0:c0 + chunk].float()
+        mb = mask[:, :, c0:c0 + chunk]
+        n = kb.shape[1]
+        if n < chunk:   # the JAX package pads the last chunk: masked zeros
+            kb = F.pad(kb, (0, 0, 0, 0, 0, chunk - n))
+            vb = F.pad(vb, (0, 0, 0, 0, 0, chunk - n))
+            mb = F.pad(mb, (0, chunk - n), value=False)
+        logits = torch.einsum("bqkgh,bskh->bkgqs", qf, kb) * scale
+        if softcap:
+            logits = torch.tanh(logits / softcap) * softcap
+        logits = torch.where(mb[:, None, None, :, :], logits, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgqs,bskh->bkgqh", p, vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(v.dtype)            # (B,Sq,Kv,G,hd)
+
+
+def _sdpa_flash(qg, k, v, cfg: ArchConfig, scale, sliding_window, kv_len):
+    """The flash kernel's path: fold (B, Kv, G) into BH, k / v repeated G
+    times per kv head (as `jnp.repeat` does; an expand, which needs no
+    device read). qg: (B,Sq,Kv,G,hd); k, v: (B,Skv,Kv,hd)."""
+    B, Sq, Kv, G, hd = qg.shape
+    Skv = k.shape[1]
+    qf = qg.permute(0, 2, 3, 1, 4).reshape(B * Kv * G, Sq, hd)
+    kf, vf = (t.permute(0, 2, 1, 3)[:, :, None]
+              .expand(B, Kv, G, Skv, hd).reshape(B * Kv * G, Skv, hd)
+              for t in (k, v))
+    out = ops.flash_attention(qf, kf, vf, scale=scale, causal=True,
+                              window=sliding_window, softcap=cfg.attn_softcap,
+                              kv_len=kv_len)
+    return out.reshape(B, Kv, G, Sq, hd).permute(0, 3, 1, 2, 4)
+
+
+def attend(params, x, cfg: ArchConfig, *, positions, sliding_window=None,
+           cache: Optional[KVCache] = None, pad=None):
+    """Causal self-attention; returns (out (B,Sq,D), cache). (The JAX
+    package's cross-attention and bidirectional arguments, ``kv``,
+    ``kv_positions`` and ``causal=False``, serve the VLM and audio blocks,
+    which are not ported: ROADMAP queue A item 12.)
+
+    With ``cache`` this is a cached prefill (Sq > 1) or decode step
+    (Sq == 1): the new keys and values go to slots [length, length + Sq)
+    of the cache, in place; past ``max_len`` it raises (the JAX package
+    clamps the start there).
+
+    ``pad`` ((B,) int64 per-row LEFT-pad lengths) serves ragged waves out
+    of one cache: the caller passes positions already shifted by -pad; the
+    first pad[b] cache slots of row b are masked and kv positions shifted
+    to match.
+    """
+    B, Sq, D = x.shape
+    H, Kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    G = H // Kv
+    cd = cfg.cdtype
+
+    q = x @ params["wq"].to(cd)
+    k = x @ params["wk"].to(cd)
+    v = x @ params["wv"].to(cd)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(cd)
+        k = k + params["bk"].to(cd)
+        v = v + params["bv"].to(cd)
+    q = apply_rope(q.reshape(B, Sq, H, hd), positions, cfg.rope_theta,
+                   cfg.rotary_pct)
+    k = apply_rope(k.reshape(B, Sq, Kv, hd), positions, cfg.rope_theta,
+                   cfg.rotary_pct)
+    v = v.reshape(B, Sq, Kv, hd)
+
+    if cache is not None:
+        start, max_len = cache.length, cache.k.shape[1]
+        if start + Sq > max_len:
+            raise ValueError(f"KV cache overflow: {start} + {Sq} > {max_len}")
+        cache.k[:, start:start + Sq] = k.to(cache.k.dtype)
+        cache.v[:, start:start + Sq] = v.to(cache.v.dtype)
+        cache = KVCache(cache.k, cache.v, start + Sq)
+        k, v = cache.k, cache.v
+
+    Skv = k.shape[1]
+    scale = cfg.query_scale if cfg.query_scale else hd ** -0.5
+    qg = q.reshape(B, Sq, Kv, G, hd)
+    use_flash = (cfg.attn_impl == "pallas_flash" and Sq > 1
+                 and Sq % 128 == 0 and Skv % 128 == 0
+                 and pad is None)   # the flash path has no per-row pad mask
+    if use_flash:
+        out = _sdpa_flash(qg, k, v, cfg, scale, sliding_window,
+                          cache.length if cache is not None else None)
+    else:
+        mask = _mask(positions, Skv, x.device, cache, pad, sliding_window)
+        if cfg.attn_impl in ("chunked", "pallas_flash") and Sq > 1 \
+                and Skv > cfg.attn_chunk:
+            out = _sdpa_chunked(qg, k, v, mask, cfg.attn_softcap, scale,
+                                cfg.attn_chunk)
+        else:
+            out = _sdpa(qg, k, v, mask, cfg.attn_softcap, scale)
+    out = out.reshape(B, Sq, H * hd) @ params["wo"].to(cd)
+    return out, cache
+
+
+def _mask(positions, Skv, device, cache, pad, sliding_window):
+    """(B|1, Sq, Skv) bool: the keys each query may attend to (causal; the
+    cache's valid prefix less each row's pad slots; the window)."""
+    q_pos = positions if positions.dim() == 2 else positions[None, :]
+    kv_pos = torch.arange(Skv, device=device)[None, :]
+    valid = torch.ones((1, Skv), dtype=torch.bool, device=device)
+    if cache is not None:
+        valid = kv_pos < cache.length
+        if pad is not None:
+            valid = valid & (kv_pos >= pad[:, None])
+            kv_pos = kv_pos - pad[:, None]
+    mask = (q_pos[:, :, None] >= kv_pos[:, None, :]) & valid[:, None, :]
+    if sliding_window:
+        mask = mask & (q_pos[:, :, None] - kv_pos[:, None, :] < sliding_window)
+    return mask
+
+
+def init_mlp(cfg: ArchConfig, generator, device, d_ff=None, d_model=None):
+    D = d_model or cfg.d_model
+    Fd = d_ff or cfg.d_ff
+    init = lambda shape: nn.Parameter(dense_init(shape, cfg.pdtype, generator,
+                                                 device))
+    return nn.ParameterDict({"wi": init((D, Fd)), "wg": init((D, Fd)),
+                             "wo": init((Fd, D))})
+
+
+def mlp(params, x, cfg: ArchConfig):
+    """Gated MLP: act(x wg) * (x wi) wo; gelu is the tanh approximation
+    (`jax.nn.gelu`'s default)."""
+    cd = cfg.cdtype
+    g = x @ params["wg"].to(cd)
+    g = F.silu(g) if cfg.act == "silu" else F.gelu(g, approximate="tanh")
+    return (g * (x @ params["wi"].to(cd))) @ params["wo"].to(cd)

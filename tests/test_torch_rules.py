@@ -1,17 +1,21 @@
 """Rules of the PyTorch port: it imports neither JAX nor the JAX package,
-it runs on CUDA unless the caller asks for the CPU, its flags select the
-backends the JAX package's flags select, and every part that is not ported
-yet raises instead of running something else."""
+it runs on CUDA unless the caller asks for the CPU (the BCPNN `Simulator`,
+the LM `Model` and `ServingEngine`), its flags select the backends the JAX
+package's flags select, and every part that is not ported yet raises
+instead of running something else."""
 import ast
 import pathlib
 
 import pytest
 import torch
 
+from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.core import (DenseBackend, Simulator, WorklistBackend,
                               select_backend)
 from repro_torch.core.params import human_scale, rodent_scale
 from repro_torch.core.params import test_scale as tiny_scale
+from repro_torch.launch.serve import ServingEngine
+from repro_torch.models.transformer import Model, init_cache_for_kind
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -40,6 +44,54 @@ def test_simulator_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Simulator(p)
+
+
+@pytest.mark.parametrize("make", ["model", "engine"])
+def test_lm_entry_points_default_to_cuda(make):
+    cfg = get_smoke_config("qwen2-1.5b")
+    build = {"model": lambda: Model(cfg),
+             "engine": lambda: ServingEngine(Model(cfg, device="cpu"), 2, 32)}
+    if torch.cuda.is_available():
+        obj = build[make]()
+        model = obj if make == "model" else obj.model
+        assert model.embed.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build[make]()
+
+
+DENSE = ("internlm2-1.8b", "stablelm-3b", "qwen2-1.5b", "gemma2-9b")
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in DENSE])
+def test_unported_lm_families_raise(arch):
+    """MoE, SSM / hybrid, VLM and audio stacks are not ported: building
+    the model raises, naming the ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 12"):
+        Model(get_smoke_config(arch), device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["attn_moe", "mamba", "mlstm", "slstm",
+                                  "shared_attn", "cross", "enc_attn",
+                                  "dec_cross"])
+def test_unported_lm_kinds_raise(kind):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        init_cache_for_kind(get_smoke_config("qwen3-moe-235b-a22b"), kind,
+                            1, 8, "cpu")
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_param_count_matches_the_analytic_count(arch):
+    """`ArchConfig.param_count` (a meta-device model) at full width, against
+    the JAX package's analytic formula for the dense family, written out."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    D, H, Kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    attn = D * H * hd + 2 * D * Kv * hd + H * hd * D
+    bias = (H + 2 * Kv) * hd if cfg.qkv_bias else 0
+    per_layer = attn + bias + 3 * D * cfg.d_ff + 2 * D
+    head = cfg.vocab * D * (1 if cfg.tie_embeddings else 2)
+    assert cfg.param_count() == cfg.n_layers * per_layer + head + D
 
 
 @pytest.mark.parametrize("kw", [dict(merged=True), dict(layout="blocked")],
