@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA card and the CUDA
 toolkit. Phases, in order; any failure exits non-zero:
 
   1. device  — card name and power limit (nvidia-smi), torch and CUDA.
-  2. build   — nvcc builds every kernel source of `repro_torch.kernels.csrc`.
+  2. build   — nvcc builds every kernel source of `repro_torch.kernels.csrc`;
+               prints the flash kernels' registers and spills (ptxas -v).
   3. kernels — each of the five kernels against its plain PyTorch version on
                the card, on seeded inputs at the shapes the human-width paths
                give it (sentinel and padding entries included): integers
@@ -36,16 +37,20 @@ toolkit. Phases, in order; any failure exits non-zero:
                (eager=True) runs 20 ticks beside the main path's first 20
                from the same key and input: the fired histories must be
                equal.
-  6. flash   — the flash-attention kernel against its plain version on
-               the card at the qwen2-1.5b prefill shape (BH 48 = 4 x 12
-               heads, Sq 1024, Skv 1152, kv_len 1024, hd 128, causal) in
-               bf16 and in float32, and at one gemma2-9b layer (BH 16,
-               Sq = Skv = 4608, hd 256, softcap 50, window 4096, scale
-               1/16) in bf16 and in float32: bf16 rtol 8e-3 (one bf16 ulp),
-               atol 1e-4; float32 rtol = atol = 2e-5. Each timed as
-               in phase 3; at the qwen2 shape also
-               `torch.nn.functional.scaled_dot_product_attention` on the same
-               q with k / v cut to kv_len (the library yardstick; the port
+  6. flash   — the flash-attention kernels against their plain version on
+               the card, on the model's layout: q (B, Sq, H, hd) and the KV
+               cache (B, slots, Kv, hd) read in place. The qwen2-1.5b
+               prefill (B 4, H 12, Kv 2, Sq 1024, 1152 slots, kv_len 1024,
+               hd 128, causal) and one gemma2-9b layer (B 1, H 16, Kv 8,
+               Sq = 4608 slots, hd 256, softcap 50, window 4096, scale
+               1/16), each in bf16 (`flash_mma_kernel`, tensor cores) and
+               float32 (`flash_fwd_kernel`, CUDA cores): bf16 rtol 8e-3
+               (one bf16 ulp), atol 1e-4; float32 rtol = atol = 2e-5; the
+               wrapper's record of the kernel it took is checked. Each
+               timed as in phase 3; at the qwen2 shape also
+               `torch.nn.functional.scaled_dot_product_attention` with
+               enable_gqa=True on (4, 12, 1024, 128) q and (4, 2, 1024, 128)
+               k / v, in bf16 and float32 (the library yardstick; the port
                never calls it).
   7. lm      — the LM fixture (tests/fixtures/lm_serve_smoke.npz, qwen2-1.5b
                and gemma2-9b smoke configs at float32 compute) served on the
@@ -56,11 +61,13 @@ toolkit. Phases, in order; any failure exits non-zero:
                `ServingEngine(batch_slots=4, max_len=1152)` serves 8 requests
                of 1024 random prompt tokens, 32 new tokens each, greedy (2
                waves). The launch counters are set to 0 just before the run;
-               the flash kernel must launch exactly 28 x 2 times and no BCPNN
-               kernel at all; every token lies in the vocabulary. One more
-               wave's prefill runs under CUDA sync-debug mode "error", and
-               its logits are held against the same weights under
-               attn_impl="dense": max |diff| / max |dense| < 0.03. Prints ms
+               the flash kernel must launch exactly 28 x 2 times, every time
+               `flash_mma_kernel`, and no BCPNN kernel at all; every token
+               lies in the vocabulary. One more wave's prefill runs under
+               CUDA sync-debug mode "error", and its logits are held against
+               the same weights under attn_impl="dense": max |diff| / max
+               |dense| < 0.03. Its profile must show 28 launches of
+               `flash_mma_kernel` and none of `flash_fwd_kernel`. Prints ms
                per prefill wave, the flash kernel's share of a prefill's
                device time (torch.profiler), ms per decode step, tokens/s
                and peak GiB.
@@ -460,10 +467,11 @@ def phase_fixtures(dev):
 
 
 def reset_launches():
-    """Every kernel's launch counter to 0."""
+    """Every kernel's launch counter to 0 (and the flash wrapper's count by
+    kernel)."""
     from repro_torch.kernels import bcpnn_update as BU
     from repro_torch.kernels import flash_attention as FA
-    for counts in (BU.launches, FA.launches):
+    for counts in (BU.launches, FA.launches, FA.routes):
         for k in counts:
             counts[k] = 0
 
@@ -686,26 +694,25 @@ def profile_ticks(name, sim, ext, kernels):
             "kernel_us_per_tick": ours, "phase_device_us_per_tick": phases}
 
 
-# flash attention: name -> (BH, Sq, Skv, hd, dtype, flash kwargs); the
-# first is the shape qwen2-1.5b's prefill gives the kernel in phase 7
+# flash attention: name -> (B, H, Kv, Sq, slots, hd, dtype, flash kwargs),
+# q (B, Sq, H, hd) and a (B, slots, Kv, hd) KV cache; the first is the
+# call qwen2-1.5b's prefill makes in phase 7
+QWEN2 = (4, 12, 2, 1024, 1152, 128)
+GEMMA2 = (1, 16, 8, 4608, 4608, 256)
+QWEN2_KW = dict(scale=128 ** -0.5, causal=True, kv_len=1024)
+GEMMA2_KW = dict(scale=1 / 16, causal=True, window=4096, softcap=50.0)
 FLASH_SHAPES = {
-    "qwen2-1.5b prefill bf16": (48, 1024, 1152, 128, "bfloat16",
-                                dict(scale=128 ** -0.5, causal=True,
-                                     kv_len=1024)),
-    "qwen2-1.5b prefill f32": (48, 1024, 1152, 128, "float32",
-                               dict(scale=128 ** -0.5, causal=True,
-                                    kv_len=1024)),
-    "gemma2-9b layer bf16": (16, 4608, 4608, 256, "bfloat16",
-                             dict(scale=1 / 16, causal=True, window=4096,
-                                  softcap=50.0)),
-    "gemma2-9b layer f32": (16, 4608, 4608, 256, "float32",
-                            dict(scale=1 / 16, causal=True, window=4096,
-                                 softcap=50.0)),
+    "qwen2-1.5b prefill bf16": (*QWEN2, "bfloat16", QWEN2_KW),
+    "qwen2-1.5b prefill f32": (*QWEN2, "float32", QWEN2_KW),
+    "gemma2-9b layer bf16": (*GEMMA2, "bfloat16", GEMMA2_KW),
+    "gemma2-9b layer f32": (*GEMMA2, "float32", GEMMA2_KW),
 }
 # (rtol, atol) of the kernel against its plain version: both compute in
 # float32, so bf16 outputs differ by at most one rounding (one ulp, < 2^-7
 # relative), float32 outputs by summation order
 FLASH_TOL = {"bfloat16": (8e-3, 1e-4), "float32": (2e-5, 2e-5)}
+# the kernel each dtype takes at these head dims (128, 256)
+FLASH_ROUTE = {"bfloat16": "mma", "float32": "simt"}
 
 
 def valid_pairs(Sq, Skv, causal=True, window=None, kv_len=None, **_):
@@ -717,23 +724,40 @@ def valid_pairs(Sq, Skv, causal=True, window=None, kv_len=None, **_):
     return int(np.maximum(0, hi - lo).sum())
 
 
-def phase_flash(dev):
-    """Phase 6: the flash kernel against its plain version, then timed,
-    at the qwen2-1.5b prefill shape and one gemma2-9b layer. Returns the
-    report entry of the qwen2 bf16 shape (the main path's)."""
-    import torch
+def sdpa_ms(q, k, v, kw, flush):
+    """The library yardstick: SDPA with GQA on (B, H, Sq, hd) q and (B, Kv,
+    kv_len, hd) k / v, contiguous copies made before the timing."""
     import torch.nn.functional as F
+    L = kw["kv_len"]
+    q4 = q.transpose(1, 2).contiguous()
+    k4, v4 = (t[:, :L].transpose(1, 2).contiguous() for t in (k, v))
+    return time_cuda(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, scale=kw["scale"], enable_gqa=True),
+        flush)
+
+
+def phase_flash(dev):
+    """Phase 6: the flash kernels against their plain version, then timed,
+    at the qwen2-1.5b prefill and one gemma2-9b layer. Returns the report
+    entry of the qwen2 bf16 call (the main path's)."""
+    import torch
     from repro_torch.kernels import flash_attention as FA
     flush = torch.ones(64 << 20, dtype=torch.uint8, device=dev)
     report = None
-    for name, (BH, Sq, Skv, hd, dtype, kw) in FLASH_SHAPES.items():
+    for name, (B, H, Kv, Sq, Skv, hd, dtype, kw) in FLASH_SHAPES.items():
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         dt = getattr(torch, dtype)
-        q, k, v = (torch.randn(BH, n, hd, generator=gen, device=dev).to(dt)
-                   for n in (Sq, Skv, Skv))
+        q = torch.randn(B, Sq, H, hd, generator=gen, device=dev).to(dt)
+        k, v = (torch.randn(B, Skv, Kv, hd, generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        routes = dict(FA.routes)
         got = FA.flash_attention_kernel(q, k, v, **kw)
         torch.cuda.synchronize()
+        kind = FLASH_ROUTE[dtype]
+        if FA.routes != {r: n + (r == kind) for r, n in routes.items()}:
+            fail(f"flash {name}: took {FA.routes} (before {routes}), "
+                 f"expected {kind}")
         want = FA.flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         rtol, atol = FLASH_TOL[dtype]
@@ -743,28 +767,21 @@ def phase_flash(dev):
         ms = time_cuda(lambda: FA.flash_attention_kernel(q, k, v, **kw), flush)
         plain_ms = time_cuda(lambda: FA.flash_attention_plain(q, k, v, **kw),
                              flush)
-        lib_ms = None
-        if name.startswith("qwen2") and dtype == "bfloat16":
-            # (1, BH, S, hd): the fused backends take 4-d inputs only
-            L = kw["kv_len"]
-            q4 = q[None]
-            kc, vc = (t[None, :, :L].contiguous() for t in (k, v))
-            lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
-                q4, kc, vc, is_causal=True, scale=kw["scale"]), flush)
-        # q and o (Sq rows each), once; k and v (the GQA-expanded copies
-        # the model passes) only up to kv_len: later rows are masked out
-        # and never read
+        lib_ms = sdpa_ms(q, k, v, kw, flush) if name.startswith("qwen2") \
+            else None
+        # q and o once; k and v once per kv head, only up to kv_len: later
+        # cache slots are masked out and never read
         kv_rows = min(kw.get("kv_len", Skv), Skv)
-        nbytes = 2 * BH * hd * (Sq + kv_rows) * q.element_size()
-        nops = 4 * hd * BH * valid_pairs(Sq, Skv, **kw)
+        nbytes = 2 * B * hd * (Sq * H + kv_rows * Kv) * q.element_size()
+        nops = 4 * hd * B * H * valid_pairs(Sq, Skv, **kw)
         ops_per_s = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
         e = entry("flash_attention", {"out": err}, ms, plain_ms, nbytes, nops,
                   "flash_attention",
                   source="src/repro_torch/kernels/csrc/flash_attention.cu",
                   ops_per_s=ops_per_s, library_ms=lib_ms)
-        print(f"flash {name}: max abs error {err:.3g} (rtol {rtol}, atol "
-              f"{atol}), kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        print(f"flash {name} ({kind} kernel): max abs error {err:.3g} (rtol "
+              f"{rtol}, atol {atol}), kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sdpa (gqa) "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
               f"{nbytes} bytes, {nops} flop, bound {e['bound_ms']:.4f} ms "
               f"({e['bound_by']})")
@@ -860,6 +877,7 @@ def phase_lm(dev, smi):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch.serve import Request, ServingEngine
     from repro_torch.models.transformer import Model
     cfg = dataclasses.replace(get_config("qwen2-1.5b"), attn_impl="pallas_flash")
@@ -890,6 +908,9 @@ def phase_lm(dev, smi):
         want = cfg.n_layers * waves if k == "flash_attention" else 0
         if c != want:
             fail(f"lm: {k} launched {c} times, expected {want}")
+    if FA.routes != {"mma": cfg.n_layers * waves, "simt": 0}:
+        fail(f"lm: flash launches by kernel {FA.routes}, expected every "
+             f"one flash_mma_kernel")
     toks = [t for r in done for t in r.out]
     if len(done) != LM_REQUESTS or len(toks) != LM_REQUESTS * LM_NEW:
         fail(f"lm: {len(done)} requests, {len(toks)} tokens served")
@@ -932,13 +953,22 @@ def phase_lm(dev, smi):
             logits, caches = model.prefill(batch, caches, pad)
             torch.cuda.synchronize()
         rows, total = device_rows(prof)
-        flash = sum(t for k, t in rows if "flash_fwd_kernel" in k)
-        share = (f"flash kernel {flash:.3f} ms of {total:.3f} ms device "
-                 f"time ({flash / total:.1%})" if total else
-                 "flash kernel share not measured (no CUDA activity in the "
-                 "trace)")
+        if not total:
+            fail("lm: no CUDA activity in the prefill's profile")
+        n_mma, n_simt = (sum(e.count for e in prof.key_averages()
+                             if e.device_type == DeviceType.CUDA
+                             and name in e.key)
+                         for name in ("flash_mma_kernel", "flash_fwd_kernel"))
+        if (n_mma, n_simt) != (cfg.n_layers, 0):
+            fail(f"lm: the prefill's profile shows {n_mma} flash_mma_kernel "
+                 f"and {n_simt} flash_fwd_kernel launches, expected "
+                 f"{cfg.n_layers} and 0")
+        flash = sum(t for k, t in rows if "flash_mma_kernel" in k)
         print(f"lm prefill wave [{smi}]: sync-debug 'error' passed; flash vs "
-              f"dense logits rel err {rel:.3g} (< 0.03); {share}")
+              f"dense logits rel err {rel:.3g} (< 0.03); {n_mma} "
+              f"flash_mma_kernel launches in the profile; flash kernel "
+              f"{flash:.3f} ms of {total:.3f} ms device time "
+              f"({flash / total:.1%})")
         print_rows(rows)
         # decode steps on that prefill's caches: host and device time
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
@@ -984,6 +1014,13 @@ def main():
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"build: {built} in {time.perf_counter() - t0:.2f} s")
+    # ptxas -v: each flash kernel's name, then its spills and registers
+    for line in _build.build_log.get("flash_attention", "").splitlines():
+        if "Compiling entry" in line:
+            name = line.split("'")[1]
+            print(" ", name[name.rindex("flash_"):], end=":")
+        elif "spill" in line or "Used" in line:
+            print("", line.split(":", 1)[-1].strip(), end="\n" if "Used" in line else ";")
 
     from repro_torch.core.params import human_scale
     dev = torch.device("cuda")
@@ -996,7 +1033,8 @@ def main():
     report.append(flash)
     print("the BCPNN kernels' library_ms is null: no single PyTorch call "
           "computes a cell-math pass; flash_attention's is "
-          "scaled_dot_product_attention at the qwen2-1.5b bf16 shape")
+          "scaled_dot_product_attention (enable_gqa) at the qwen2-1.5b bf16 "
+          "shape")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,10 +23,14 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # per-source flags: the BCPNN kernels repeat their plain versions' float32
-# operations one for one, so no multiply-add may be contracted there
-SOURCE_FLAGS = {"bcpnn_update": ("-fmad=false",)}
+# operations one for one, so no multiply-add may be contracted there; the
+# flash kernels report their registers and spills (ptxas -v)
+SOURCE_FLAGS = {"bcpnn_update": ("-fmad=false",),
+                "flash_attention": ("-Xptxas", "-v")}
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# nvcc's output of each source built by this process
+build_log: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -69,6 +73,7 @@ def _finish(name: str, proc, tmp, out) -> pathlib.Path:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        build_log[name] = log
         os.replace(tmp, out)
     return out
 

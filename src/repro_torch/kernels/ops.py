@@ -108,10 +108,13 @@ def col_update(zij, eij, pij, tij, now, zi_t, p_i, pj_sc,
 
 def flash_attention(q, k, v, *, scale: float, causal: bool = True,
                     window=None, softcap=None, kv_len=None):
-    """Forward attention, q (BH, Sq, hd), k / v (BH, Skv, hd) -> (BH, Sq,
-    hd) in q's dtype; Sq and Skv multiples of 128; ``kv_len`` (a Python
-    int, default Skv) bounds the valid keys. GQA callers fold (batch,
-    kv head, group) into BH with k / v repeated."""
+    """Forward attention on the model's layout: q (B, Sq, H, hd), k / v
+    (B, Skv, Kv, hd) with H % Kv == 0 (query head h reads kv head
+    h // (H // Kv)) -> o (B, Sq, H, hd) in q's dtype. Each input may be a
+    strided view with a contiguous last dim, so a KV cache (B, max_len, Kv,
+    hd) goes in as it lies, with ``kv_len`` (a Python int, default Skv)
+    bounding its valid keys; Sq and Skv multiples of 128. The JAX-shaped
+    call, (BH, S, hd) tensors, is the case H = Kv = 1."""
     fn = _dispatch(FA.flash_attention_plain, FA.flash_attention_kernel,
                    q.device)
     return fn(q, k, v, scale=scale, causal=causal, window=window,

@@ -132,20 +132,14 @@ def _sdpa_chunked(q, k, v, mask, softcap, scale, chunk: int):
     return out.permute(0, 3, 1, 2, 4).to(v.dtype)            # (B,Sq,Kv,G,hd)
 
 
-def _sdpa_flash(qg, k, v, cfg: ArchConfig, scale, sliding_window, kv_len):
-    """The flash kernel's path: fold (B, Kv, G) into BH, k / v repeated G
-    times per kv head (as `jnp.repeat` does; an expand, which needs no
-    device read). qg: (B,Sq,Kv,G,hd); k, v: (B,Skv,Kv,hd)."""
-    B, Sq, Kv, G, hd = qg.shape
-    Skv = k.shape[1]
-    qf = qg.permute(0, 2, 3, 1, 4).reshape(B * Kv * G, Sq, hd)
-    kf, vf = (t.permute(0, 2, 1, 3)[:, :, None]
-              .expand(B, Kv, G, Skv, hd).reshape(B * Kv * G, Skv, hd)
-              for t in (k, v))
-    out = ops.flash_attention(qf, kf, vf, scale=scale, causal=True,
-                              window=sliding_window, softcap=cfg.attn_softcap,
-                              kv_len=kv_len)
-    return out.reshape(B, Kv, G, Sq, hd).permute(0, 3, 1, 2, 4)
+def _sdpa_flash(q, k, v, cfg: ArchConfig, scale, sliding_window, kv_len):
+    """The flash kernel's path, on the tensors as they lie: q (B,Sq,H,hd)
+    from the projections, k / v (B,Skv,Kv,hd) (the KV cache itself when
+    there is one). The kernel reads each kv head for its G query heads, so
+    nothing is repeated, permuted or copied; returns (B,Sq,H,hd)."""
+    return ops.flash_attention(q, k, v, scale=scale, causal=True,
+                               window=sliding_window,
+                               softcap=cfg.attn_softcap, kv_len=kv_len)
 
 
 def attend(params, x, cfg: ArchConfig, *, positions, sliding_window=None,
@@ -199,7 +193,7 @@ def attend(params, x, cfg: ArchConfig, *, positions, sliding_window=None,
                  and Sq % 128 == 0 and Skv % 128 == 0
                  and pad is None)   # the flash path has no per-row pad mask
     if use_flash:
-        out = _sdpa_flash(qg, k, v, cfg, scale, sliding_window,
+        out = _sdpa_flash(q, k, v, cfg, scale, sliding_window,
                           cache.length if cache is not None else None)
     else:
         mask = _mask(positions, Skv, x.device, cache, pad, sliding_window)

@@ -137,3 +137,35 @@ def test_unported_simulator_methods_raise(method):
     sim = Simulator(tiny_scale(4, 64, 16), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         getattr(sim, method)("ckpt")
+
+
+@pytest.mark.parametrize("cached", [True, False], ids=["cache", "no_cache"])
+def test_flash_path_reads_q_and_the_kv_cache_in_place(monkeypatch, cached):
+    """`layers._sdpa_flash` hands the flash kernel q as the projection
+    gives it, (B, S, H, hd), and k / v with their Kv heads: with a cache,
+    the cache's own storage, so no G-fold copy of k / v is made."""
+    import dataclasses
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import layers as TL
+    cfg = dataclasses.replace(get_smoke_config("qwen2-1.5b"),
+                              compute_dtype="float32",
+                              attn_impl="pallas_flash")
+    H, Kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    assert H > Kv
+    gen = torch.Generator().manual_seed(0)
+    params = TL.init_attn(cfg, gen, "cpu")
+    B, S, slots = 2, 128, 256
+    x = torch.randn(B, S, cfg.d_model, generator=gen)
+    cache = TL.KVCache(torch.zeros(B, slots, Kv, hd),
+                       torch.zeros(B, slots, Kv, hd), 0) if cached else None
+    seen = []
+    orig = FA.flash_attention_plain
+    monkeypatch.setattr(FA, "flash_attention_plain", lambda q, k, v, **kw:
+                        seen.append((q, k, v)) or orig(q, k, v, **kw))
+    TL.attend(params, x, cfg, positions=torch.arange(S), cache=cache)
+    (q, k, v), = seen
+    assert q.shape == (B, S, H, hd) and q.is_contiguous()
+    assert k.shape == v.shape == (B, slots if cached else S, Kv, hd)
+    if cached:
+        assert k.data_ptr() == cache.k.data_ptr()
+        assert v.data_ptr() == cache.v.data_ptr()
