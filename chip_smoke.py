@@ -12,22 +12,35 @@ toolkit. Phases, in order; any failure exits non-zero:
   3. kernels — each of the five kernels against its plain PyTorch version on
                the card, on seeded inputs at the shapes the human-width paths
                give it (sentinel and padding entries included): integers
-               exactly, floats rtol=1e-5, atol=1e-6 (weights atol=1e-5). Then
-               each is timed with CUDA events (median of 20 launches, L2
-               flushed before each) beside its plain version and its bound.
+               exactly, floats rtol=1e-5, atol=1e-6 (weights atol=1e-5). The
+               three worklist kernels run on planes stored in each layout of
+               LAYOUTS (flat, the tiles (xr, 4) for xr = 2 to 32, and
+               (7, 5)), every stored cell compared, pad cells included.
+               Then each is
+               timed with CUDA events (median of 20 launches, L2 flushed
+               before each), the worklist kernels under every layout, beside
+               the plain version (flat) and two bounds: the function's bytes
+               and the layout's 32-byte sectors
+               (`layout.cache_lines_touched_per_s(..., line_bytes=32)`). The
+               (xr, 4) tile with the least row + column kernel time is the
+               tile phase 5's fused_blocked path runs.
   4. fixtures — the head fixtures of tests/fixtures on the card through the
                kernels, each under the flags it was captured with
                (head_lazy_worklist in all four fused / fused_cols
                combinations, head_lazy_dense with worklist=False, head_eager
-               with eager=True, head_host_lazy through `run_host`): the fired
-               history and integer leaves exactly, float leaves to the CPU
-               tests' tolerances.
+               with eager=True, head_host_lazy through `run_host`), and the
+               five lazy ones again with the planes stored in tiles (8, 4)
+               and (7, 5): the fired history and integer leaves exactly,
+               float leaves to the CPU tests' tolerances, after unpacking.
   5. paths   — `Simulator(human_scale(n_hcu=256))`: R=10000, C=100, fanout
                100, 256 HCUs (5.1 GB of ij planes), Poisson input (lambda 4,
                width 8, seed 0). The main path (the fused worklist backend):
-               16 warm-up ticks, then 200 timed ticks; the unfused worklist
-               backend (fused=False, fused_cols=False) and the dense backend
-               (worklist=False): 16 warm-up and 100 timed ticks each. The
+               16 warm-up ticks, then 200 timed ticks; the same backend with
+               the planes stored in phase 3's tile (fused_blocked), the
+               unfused worklist backend (fused=False, fused_cols=False) and
+               the dense backend (worklist=False): 16 warm-up and 100 timed
+               ticks each; fused_blocked's fired history must equal the
+               fused path's over the same ticks. The
                kernels' launch counters are set to 0 just before the timed
                ticks, which run under CUDA sync-debug mode "error", so a host
                synchronisation inside the tick fails the run. Each kernel of
@@ -165,7 +178,7 @@ def row_inputs(p, gen, dev):
     """Row-phase operands at the main path's shapes: W = H*(active_queue+8)
     slot-ordered entries, ~14 unique rows per HCU (the delay-queue and
     external spikes a tick brings at lambda 4 and out_rate 0.1), the rest
-    the H*R sentinel."""
+    the H*R sentinel; zj / pj the (H, C) j-vectors."""
     import torch
     n, R, C = p.n_hcu, p.rows, p.cols
     A = p.active_queue + 8
@@ -183,14 +196,15 @@ def row_inputs(p, gen, dev):
         rows=rows,
         counts=torch.where(valid, torch.randint(1, 4, (W,), generator=gen,
                                                 device=dev).float(), 0.0),
-        zj=u(W, C) * 2, p_i=u(W) * 0.1 + 1e-4, pj=u(W, C) * 0.1 + 1e-4,
+        zj=u(n, C) * 2, p_i=u(W) * 0.1 + 1e-4, pj=u(n, C) * 0.1 + 1e-4,
         zi_new=u(W) * 3, ei_new=u(W) * 0.5, pi_new=u(W) * 0.1 + 1e-4)
 
 
 def col_inputs(p, gen, dev):
     """Column-phase operands at the main path's shapes: K = int(0.35 H)+1
     entries, out_rate * H of them fired (26 of 256) with unique HCUs, the
-    last one at the last HCU's last column, the rest padding (h == H)."""
+    last one at the last HCU's last column, the rest padding (h == H); pj
+    the (H, C) j-vector P (the i-vectors are the planes')."""
     import torch
     n, R, C = p.n_hcu, p.rows, p.cols
     K = max(2, int(0.35 * n) + 1)
@@ -202,9 +216,8 @@ def col_inputs(p, gen, dev):
     j[:fired] = torch.randint(0, C, (fired,), generator=gen, device=dev,
                               dtype=torch.int32)
     j[fired - 1] = C - 1
-    u = lambda *s: torch.rand(*s, generator=gen, device=dev)
-    return dict(h_idx=h, j_idx=j, zi_t=u(K, R) * 3, p_i=u(K, R) * 0.1 + 1e-4,
-                pj_sc=u(K) * 0.1 + 1e-4)
+    return dict(h_idx=h, j_idx=j,
+                pj=torch.rand(n, C, generator=gen, device=dev) * 0.1 + 1e-4)
 
 
 def random_planes(p, gen, dev):
@@ -221,12 +234,60 @@ def random_planes(p, gen, dev):
                          dtype=torch.int32))
 
 
+# the plane layouts of phase 3: name -> tile (None: flat). The worklist
+# kernels are checked under each and timed under each; the (xr, 4) tile
+# whose row and column kernels take the least time together is the one
+# the fused_blocked path of phase 5 runs
+LAYOUTS = (("flat", None), ("2x4", (2, 4)), ("4x4", (4, 4)), ("8x4", (8, 4)),
+           ("16x4", (16, 4)), ("32x4", (32, 4)), ("7x5", (7, 5)))
+TILE_CANDIDATES = ("2x4", "4x4", "8x4", "16x4", "32x4")
+NAMES9 = ("zij", "eij", "pij", "wij", "tij", "zi", "ei", "pi", "ti")
+
+
+def sector_bytes(p, tile, kind):
+    """Bytes one access of a logical row / column of one plane moves in
+    32-byte sectors under ``tile`` (None: flat, the tile (1, C)), by the
+    layout's own line model."""
+    from repro_torch.core import layout as L
+    xr, xc = tile or (1, p.cols)
+    rates = (0.5, 0.0) if kind == "row" else (0.0, 0.5)
+    return L.cache_lines_touched_per_s(xr, xc, p.rows, p.cols, *rates,
+                                       line_bytes=SECTOR) * SECTOR
+
+
+def check_inplace(tag, kname, call, base, names, flush, time_plain):
+    """A worklist kernel against its plain version on copies of the stored
+    planes ``base`` (every stored cell compared, pad cells included), then
+    timed. Returns (errors, ms, plain ms or None)."""
+    import torch
+    from repro_torch.kernels import bcpnn_update as BU
+    kernel = getattr(BU, f"{kname}_kernel")
+    plain = getattr(BU, f"{kname}_plain")
+    ker = {f: base[f].clone() for f in names}
+    out_k = call(kernel, ker)
+    torch.cuda.synchronize()
+    pla = {f: base[f].clone() for f in names}
+    out_p = call(plain, pla)
+    torch.cuda.synchronize()
+    errs = {f: check_close(f"{tag} {f}", ker[f], pla[f],
+                           atol=1e-5 if f == "wij" else 1e-6) for f in names}
+    if out_k is not None:
+        errs["wrow"] = check_close(f"{tag} wrow", out_k, out_p, atol=1e-5)
+    del pla, out_p
+    ms = time_cuda(lambda: call(kernel, ker), flush)
+    plain_ms = time_cuda(lambda: call(plain, ker), flush) if time_plain else None
+    del ker
+    return errs, ms, plain_ms
+
+
 def phase_kernels(p, dev):
-    """Phase 3: each kernel against its plain version, then timed."""
+    """Phase 3: each kernel against its plain version, then timed; the
+    three worklist kernels under every layout of LAYOUTS. Returns (the
+    report's entries, the tile phase 5's blocked path runs)."""
     import torch
     from repro_torch.core import hcu as H
-    from repro_torch.kernels import bcpnn_update as BU
-    k, eps = H.coeffs_ij(p), p.eps
+    from repro_torch.core import layout as L
+    k, ki, eps = H.coeffs_ij(p), H.coeffs_i(p), p.eps
     n, R, C = p.n_hcu, p.rows, p.cols
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -234,106 +295,105 @@ def phase_kernels(p, dev):
     now = torch.tensor(NOW, dtype=torch.int32, device=dev)
     rin, cin = row_inputs(p, gen, dev), col_inputs(p, gen, dev)
     flush = torch.ones(64 << 20, dtype=torch.uint8, device=dev)
-    names9 = ("zij", "eij", "pij", "wij", "tij", "zi", "ei", "pi", "ti")
-    names5 = names9[:5]
-    report = []
-
-    # -- row phase --------------------------------------------------------
-    def row_call(fn, pl):
-        return fn(*(pl[f] for f in names9), rin["rows"], now, rin["counts"],
-                  rin["zj"], rin["p_i"], rin["pj"], rin["zi_new"],
-                  rin["ei_new"], rin["pi_new"], k, eps)
-    ker = {f: t.clone() for f, t in planes.items()}
-    wrow_k = row_call(BU.fused_row_update_kernel, ker)
-    torch.cuda.synchronize()
-    pla = {f: t.clone() for f, t in planes.items()}
-    wrow_p = row_call(BU.fused_row_update_plain, pla)
-    torch.cuda.synchronize()
-    errs = {f: check_close(f"row {f}", ker[f], pla[f],
-                           atol=1e-5 if f == "wij" else 1e-6) for f in names9}
-    errs["wrow"] = check_close("row wrow", wrow_k, wrow_p, atol=1e-5)
-    print("row kernel vs plain, max abs error:", json.dumps(errs))
-    del pla
-    ms = time_cuda(lambda: row_call(BU.fused_row_update_kernel, ker), flush)
-    plain_ms = time_cuda(lambda: row_call(BU.fused_row_update_plain, ker), flush)
+    names5 = NAMES9[:5]
+    W, A = rin["rows"].shape[0], rin["rows"].shape[0] // n
     nv = int((rin["rows"] < n * R).sum())
-    W = rin["rows"].shape[0]
-    row_bytes = nv * C * 4 * 12 + (W - nv) * C * 4 + W * 4 * 6 + nv * 4 * 4
-    row_ops = nv * C * OPS_PER_CELL
-    report.append(entry("fused_row_update", errs, ms, plain_ms, row_bytes,
-                        row_ops, "fused_row_update_kernel_call"))
-    print(f"row kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"{nv} valid of {W} slots, {row_bytes} bytes")
-
-    # -- column phase -----------------------------------------------------
-    def col_call(fn, pl):
-        fn(*(pl[f] for f in names5), cin["h_idx"], cin["j_idx"], now,
-           cin["zi_t"], cin["p_i"], cin["pj_sc"], k, eps, n, R)
-    ker = {f: planes[f].clone() for f in names5}
-    col_call(BU.fused_col_update_kernel, ker)
-    torch.cuda.synchronize()
-    pla = {f: planes[f].clone() for f in names5}
-    col_call(BU.fused_col_update_plain, pla)
-    torch.cuda.synchronize()
-    errs = {f: check_close(f"col {f}", ker[f], pla[f],
-                           atol=1e-5 if f == "wij" else 1e-6) for f in names5}
-    print("column kernel vs plain, max abs error:", json.dumps(errs))
-    del pla
-    ms = time_cuda(lambda: col_call(BU.fused_col_update_kernel, ker), flush)
-    plain_ms = time_cuda(lambda: col_call(BU.fused_col_update_plain, ker), flush)
     nf = int((cin["h_idx"] < n).sum())
     K = cin["h_idx"].shape[0]
-    # 9 strided plane accesses per cell (read z e p t, write z e p w t),
-    # a 32-byte sector each; zi_t and p_i are contiguous
-    col_bytes = nf * R * (9 * SECTOR + 8) + K * 12
-    col_ops = nf * R * OPS_PER_CELL
-    report.append(entry("fused_col_update", errs, ms, plain_ms, col_bytes,
-                        col_ops, "fused_col_update_kernel_call"))
-    print(f"column kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"{nf} fired of {K} entries, {col_bytes} bytes "
-          f"({nf * R * (9 * 4 + 8)} if cells moved 4 bytes each)")
-
-    # -- unfused worklist row update --------------------------------------
-    # the row phase's worklist compacted valid-first, sentinel past nv
+    # the unfused worklist: the row phase's worklist compacted valid-first,
+    # the sentinel past nv, zj / pj gathered per entry as the engine does
     valid = rin["rows"] < n * R
     order = torch.argsort((~valid).to(torch.int32), stable=True)
     nv_t = valid.sum().to(torch.int32).reshape(1)
+    h_of = order // A
     wl = dict(rows=torch.where(valid[order], rin["rows"][order], n * R),
-              counts=rin["counts"][order], zj=rin["zj"][order],
-              p_i=rin["p_i"][order], pj=rin["pj"][order])
+              counts=rin["counts"][order], zj=rin["zj"][h_of],
+              p_i=rin["p_i"][order], pj=rin["pj"][h_of])
+    print(f"kernels: {nv} valid of {W} row slots, {nf} fired of {K} column "
+          f"entries, R={R} C={C}, {n} HCUs")
 
-    def wl_call(fn, pl):
-        fn(*(pl[f] for f in names5), wl["rows"], nv_t, now, wl["counts"],
-           wl["zj"], wl["p_i"], wl["pj"], k, eps)
-    ker = {f: planes[f].clone() for f in names5}
-    wl_call(BU.worklist_row_update_kernel, ker)
-    torch.cuda.synchronize()
-    pla = {f: planes[f].clone() for f in names5}
-    wl_call(BU.worklist_row_update_plain, pla)
-    torch.cuda.synchronize()
-    errs = {f: check_close(f"worklist {f}", ker[f], pla[f],
-                           atol=1e-5 if f == "wij" else 1e-6) for f in names5}
-    print("worklist row kernel vs plain, max abs error:", json.dumps(errs))
-    del pla
-    ms = time_cuda(lambda: wl_call(BU.worklist_row_update_kernel, ker), flush)
-    plain_ms = time_cuda(lambda: wl_call(BU.worklist_row_update_plain, ker),
-                         flush)
-    nv = int(nv_t)
-    # a live entry reads z e p t zj pj and writes z e p w t (C cells each),
-    # plus its row, count and p_i
-    wl_bytes = nv * (11 * C * 4 + 12) + 8
-    report.append(entry("worklist_row_update", errs, ms, plain_ms, wl_bytes,
-                        nv * C * OPS_PER_CELL, "worklist_update_kernel_call"))
-    print(f"worklist row kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"{nv} live of {W} entries, {wl_bytes} bytes")
-    del ker, planes
+    def row_call(lay):
+        return lambda fn, pl: fn(
+            *(pl[f] for f in NAMES9), rin["rows"], now, rin["counts"],
+            rin["zj"], rin["p_i"], rin["pj"], rin["zi_new"], rin["ei_new"],
+            rin["pi_new"], k, eps, layout=lay)
+
+    def col_call(lay):
+        return lambda fn, pl: fn(
+            *(pl[f] for f in NAMES9), cin["pj"], cin["h_idx"], cin["j_idx"],
+            now, k, ki, eps, n, R, layout=lay)
+
+    def wl_call(lay):
+        return lambda fn, pl: fn(
+            *(pl[f] for f in names5), wl["rows"], nv_t, now, wl["counts"],
+            wl["zj"], wl["p_i"], wl["pj"], k, eps, layout=lay)
+
+    # bytes each kernel moves at these inputs, by the function (each plane
+    # cell, vector and weight row once) and by the layout's 32-byte sectors
+    # (`row` / `col`: one access of a logical row / column of one plane)
+    def row_bytes(row):
+        return (nv * (9 * row + C * 4 + 16) + (W - nv) * C * 4 + n * C * 8
+                + W * 24)
+
+    def col_bytes(col):
+        return nf * (9 * col + R * 16 + 4) + K * 8
+
+    def wl_bytes(row):
+        return nv * (9 * row + C * 8 + 12) + 8
+
+    specs = (("fused_row_update", row_call, NAMES9, row_bytes, "row",
+              nv * C, "fused_row_update_kernel_call"),
+             ("fused_col_update", col_call, NAMES9, col_bytes, "col",
+              nf * R, "fused_col_update_kernel_call"),
+             ("worklist_row_update", wl_call, names5, wl_bytes, "row",
+              nv * C, "worklist_update_kernel_call"))
+    per = {s[0]: {} for s in specs}
+    plain = {}
+    for lname, tile in LAYOUTS:
+        lay = None if tile is None else L.BlockedLayout(R, C, *tile)
+        base = {f: lay.store(planes[f]) if lay is not None and f in names5
+                else planes[f] for f in NAMES9}
+        for kname, call, names, nbytes, kind, cells, _ in specs:
+            errs, ms, plain_ms = check_inplace(
+                f"{kname} {lname}", kname, call(lay), base, names, flush,
+                time_plain=tile is None)
+            if plain_ms is not None:
+                plain[kname] = plain_ms
+            fn_b = nbytes(C * 4 if kind == "row" else R * 4)
+            sec_b = nbytes(sector_bytes(p, tile, kind))
+            per[kname][lname] = {
+                "ms": ms, "max_abs_err": max(errs.values()),
+                "function_bytes": fn_b,
+                "function_bound_ms": fn_b / HBM_BYTES_PER_S * 1e3,
+                "sector_bytes": sec_b,
+                "sector_bound_ms": sec_b / HBM_BYTES_PER_S * 1e3}
+            print(f"{kname} [{lname}]: {ms:.5f} ms, max abs error "
+                  f"{max(errs.values())}, bound {fn_b} bytes "
+                  f"({fn_b / HBM_BYTES_PER_S * 1e3:.5f} ms), sectors "
+                  f"{sec_b} bytes ({sec_b / HBM_BYTES_PER_S * 1e3:.5f} ms)")
+        del base
+        torch.cuda.empty_cache()
+    report = []
+    for kname, _, _, nbytes, kind, cells, tpu_fn in specs:
+        flat = per[kname]["flat"]
+        e = entry(kname, {"all": max(v["max_abs_err"]
+                                     for v in per[kname].values())},
+                  flat["ms"], plain[kname], flat["function_bytes"],
+                  cells * OPS_PER_CELL, tpu_fn)
+        e["layouts"] = per[kname]
+        report.append(e)
+    sums = {t: per["fused_row_update"][t]["ms"] + per["fused_col_update"][t]["ms"]
+            for t in TILE_CANDIDATES}
+    best = min(sums, key=sums.get)
+    print("row + column kernel ms by tile: " + json.dumps(sums)
+          + f"; phase 5 runs {best}")
+    del planes
     torch.cuda.empty_cache()
 
     # -- gathered row blocks (dense backend) ------------------------------
-    A = W // n
     rb = block_inputs((n, A, C), gen, dev)
     rb.update(counts=rin["counts"].reshape(n, A), p_i=rin["p_i"].reshape(n, A),
-              zj=_rand(gen, dev, n, C) * 2, pj=_rand(gen, dev, n, C) * 0.1 + 1e-4)
+              zj=rin["zj"], pj=rin["pj"])
     rb_call = lambda fn: fn(rb["zij"], rb["eij"], rb["pij"], rb["tij"], now,
                             rb["counts"], rb["zj"], rb["p_i"], rb["pj"], k,
                             eps)
@@ -345,17 +405,19 @@ def phase_kernels(p, dev):
                               "row_update_kernel_call"))
 
     # -- gathered columns (dense backend, unfused column step) ------------
-    K = cin["h_idx"].shape[0]
     cb = block_inputs((K, R), gen, dev)
+    cb.update(zi_t=_rand(gen, dev, K, R) * 3,
+              p_i=_rand(gen, dev, K, R) * 0.1 + 1e-4,
+              pj_sc=_rand(gen, dev, K) * 0.1 + 1e-4)
     cb_call = lambda fn: fn(cb["zij"], cb["eij"], cb["pij"], cb["tij"], now,
-                            cin["zi_t"], cin["p_i"], cin["pj_sc"], k, eps)
+                            cb["zi_t"], cb["p_i"], cb["pj_sc"], k, eps)
     # every entry is computed, padding included: reads z e p t zi_t p_i,
     # writes z e p w t per cell, and pj_sc per entry
     cb_bytes = K * R * 11 * 4 + K * 4 + 4
     report.append(check_block("col_update", cb_call, flush, cb_bytes,
                               K * R * OPS_PER_CELL, "col_update_kernel_call"))
     print(f"column blocks: {K} entries ({nf} fired) of {R} rows")
-    return report
+    return report, dict(LAYOUTS)[best]
 
 
 def _rand(gen, dev, *shape):
@@ -418,23 +480,31 @@ def entry(name, errs, ms, plain_ms, nbytes, nops, tpu_fn,
 
 
 # fixture -> the flags it was captured with (tests/fixtures/capture_head.py)
-# and whether it ran the host-loop driver
+# and whether it ran the host-loop driver; the lazy ones also with the
+# planes stored column-blocked (tiles (8, 4) and (7, 5), 64 x 16 HCUs)
 FIXTURES = [("lazy_worklist", dict(worklist=True, fused=f, fused_cols=fc),
              False) for f in (True, False) for fc in (True, False)] + [
     ("lazy_dense", dict(worklist=False), False),
     ("eager", dict(eager=True), False),
     ("host_lazy", dict(worklist=False), True)]
+FIXTURES += [(name, dict(kw, layout=tile), host)
+             for tile in ((8, 4), (7, 5)) for name, kw, host in FIXTURES[:5]]
 
 
 def phase_fixtures(dev):
-    """Phase 4: the head fixtures through the kernels on the card."""
+    """Phase 4: the head fixtures through the kernels on the card; blocked
+    runs compared after unpacking (`convert.state_to_numpy`)."""
     import torch
     from repro_torch import convert
     from repro_torch.core import Simulator
+    from repro_torch.core.layout import BlockedLayout
     from repro_torch.core.params import test_scale
+    p = test_scale(4, 64, 16)
     for name, kw, host in FIXTURES:
         d = dict(np.load(ROOT / "tests" / "fixtures" / f"head_{name}.npz"))
-        sim = Simulator(test_scale(4, 64, 16), key=0, device=dev, **kw)
+        tile = kw.get("layout")
+        kw = dict(kw, layout=tile and BlockedLayout(p.rows, p.cols, *tile))
+        sim = Simulator(p, key=0, device=dev, **kw)
         for k, v in convert.conn_to_numpy(sim.conn).items():
             if not np.array_equal(v, d[k]):
                 fail(f"fixture {name}: {k} differs")
@@ -445,10 +515,11 @@ def phase_fixtures(dev):
             fired = sim.run(d["ext"])
         fired = fired.cpu().numpy()
         torch.cuda.synchronize()
-        tag = f"{name} {json.dumps(kw)}{' run_host' if host else ''}"
+        tag = (f"{name} {json.dumps(dict(kw, layout=tile))}"
+               f"{' run_host' if host else ''}")
         if not np.array_equal(fired, d["fired"]):
             fail(f"fixture {tag}: fired history differs")
-        got = convert.state_to_numpy(sim.state)
+        got = convert.state_to_numpy(sim.state, sim.layout)
         for k in INT_LEAVES:
             if not np.array_equal(got[k], d[k]):
                 fail(f"fixture {tag}: {k} differs")
@@ -483,9 +554,12 @@ def read_launches():
 
 
 # path -> (Simulator flags, timed ticks, the kernels it must launch once
-# per tick; every other kernel must not launch)
+# per tick; every other kernel must not launch). fused_blocked stores the
+# planes in the (xr, 4) tile that phase 3 found fastest (`phase_paths`).
 PATHS = {
     "fused": (dict(), TIMED_TICKS, ("fused_row_update", "fused_col_update")),
+    "fused_blocked": (dict(layout=None), OTHER_TICKS,
+                      ("fused_row_update", "fused_col_update")),
     "unfused": (dict(fused=False, fused_cols=False), OTHER_TICKS,
                 ("worklist_row_update", "col_update")),
     "dense": (dict(worklist=False), OTHER_TICKS, ("row_update", "col_update")),
@@ -517,13 +591,13 @@ def check_state(name, sim, fired, p, ticks, t_end):
     return rate
 
 
-def run_path(name, p, ext):
+def run_path(name, p, ext, kw):
     """One human-width path: warm-up, timed ticks under sync-debug "error"
     with the launch counters from 0, the checks, a 10-tick profile.
-    Returns (launch counts, µs/tick, profile summary)."""
+    Returns (launch counts, µs/tick, profile summary, fired history)."""
     import torch
     from repro_torch.core import Simulator
-    kw, ticks, expect = PATHS[name]
+    _, ticks, expect = PATHS[name]
     t0 = time.perf_counter()
     sim = Simulator(p, key=0, **kw)              # the default device: CUDA
     torch.cuda.synchronize()
@@ -552,9 +626,10 @@ def run_path(name, p, ext):
           f"fired rate {rate:.4f} per HCU per tick, drops {sim.drops()}, "
           f"launches {json.dumps(counts)}")
     prof = profile_ticks(name, sim, ext[:PROFILE_TICKS], expect)
-    del sim, fired
+    fired = fired.cpu()
+    del sim
     torch.cuda.empty_cache()
-    return counts, us, prof
+    return counts, us, prof, fired
 
 
 def phase_eager(p, ext):
@@ -566,6 +641,7 @@ def phase_eager(p, ext):
     f_lazy = lazy.run(ext[:EAGER_TICKS]).cpu()
     del lazy
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()     # the peak below is eager's own
     eager = Simulator(p, key=0, eager=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -588,20 +664,31 @@ def phase_eager(p, ext):
     return us, prof
 
 
-def phase_paths(report):
-    """Phase 5: every path at human width through the kernels."""
+def phase_paths(report, tile):
+    """Phase 5: every path at human width through the kernels; the
+    fused_blocked path with the planes stored in ``tile``, its fired
+    history held against the flat fused path's over the same ticks."""
     import torch
+    from repro_torch.core.layout import BlockedLayout
     from repro_torch.core.params import human_scale
     p = human_scale(n_hcu=256)
     ext = torch.from_numpy(ext_tensor(p, WARM_TICKS + TIMED_TICKS)).cuda()
     print(f"paths: human_scale(n_hcu=256) R={p.rows} C={p.cols} "
-          f"fanout={p.fanout} A={p.active_queue}")
-    runs = {name: run_path(name, p, ext) for name in PATHS}
+          f"fanout={p.fanout} A={p.active_queue}; fused_blocked tile {tile}")
+    flags = {name: kw for name, (kw, _, _) in PATHS.items()}
+    flags["fused_blocked"] = dict(layout=BlockedLayout(p.rows, p.cols, *tile))
+    runs = {name: run_path(name, p, ext, flags[name]) for name in PATHS}
+    a, b = runs["fused"][3], runs["fused_blocked"][3]
+    if not torch.equal(b, a[:b.shape[0]]):
+        fail(f"fused_blocked path: fired history differs from the fused "
+             f"path's in {int((b != a[:b.shape[0]]).sum())} places")
+    print(f"fused_blocked path: fired history equals the fused path's over "
+          f"{b.shape[0]} ticks ({int((b >= 0).sum())} spikes)")
     for e in report:
         e["launches"] = runs[REPORT_PATH[e["name"]]][0][e["name"]]
     eager_us, eager_prof = phase_eager(p, ext)
     summary = {name: {"us_per_tick": us, **prof}
-               for name, (_, us, prof) in runs.items()}
+               for name, (_, us, prof, _) in runs.items()}
     summary["eager"] = {"us_per_tick": eager_us, **eager_prof}
     print("paths summary:", json.dumps(summary))
 
@@ -1024,9 +1111,9 @@ def main():
 
     from repro_torch.core.params import human_scale
     dev = torch.device("cuda")
-    report = phase_kernels(human_scale(n_hcu=256), dev)
+    report, tile = phase_kernels(human_scale(n_hcu=256), dev)
     phase_fixtures(dev)
-    phase_paths(report)
+    phase_paths(report, tile)
     flash = phase_flash(dev)
     phase_lm_fixture(dev)
     flash["launches"] = phase_lm(dev, smi)

@@ -8,8 +8,9 @@ reference the port is tested against. The port imports neither JAX nor
 Ported so far:
 
 * the local lazy and eager BCPNN tick on one device, with every backend
-  the JAX package has for it (`repro_torch.core.engine.Simulator`), and
-  the five BCPNN update kernels as hand-written Hopper kernels;
+  the JAX package has for it (`repro_torch.core.engine.Simulator`), on
+  flat or column-blocked (Row-Merge) planes (`repro_torch.core.layout`),
+  and the five BCPNN update kernels as hand-written Hopper kernels;
 * the LM serving path of the dense-family transformer
   (`repro_torch.models`, `repro_torch.train.serve_step`,
   `repro_torch.launch.serve.ServingEngine`), with prefill attention as a

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import hcu as H
+from repro_torch.core import layout as L
 from repro_torch.core import network as N
 from repro_torch.core.params import BCPNNParams
 from repro_torch.models.base import ArchConfig
@@ -31,10 +32,12 @@ from repro_torch.models.transformer import Model, build_stack_spec
 _SCALARS = ("t", "drops_in", "drops_fire", "drops_route")
 
 
-def state_from_numpy(arrays, p: BCPNNParams, device) -> N.NetworkState:
+def state_from_numpy(arrays, p: BCPNNParams, device,
+                     layout=None) -> N.NetworkState:
     """NetworkState from the JAX package's leaves as numpy arrays (a dict or
-    an npz file). ``drops_route`` defaults to 0 when absent. The flat shapes
-    are checked against ``p``."""
+    an npz file), in flat order; its ij planes are stored in ``layout``
+    (None: flat). ``drops_route`` defaults to 0 when absent. The flat
+    shapes are checked against ``p``."""
     n = np.asarray(arrays["delay_rows"]).shape[0]
     shapes = {f: (n * p.rows, p.cols) for f in ("zij", "eij", "pij", "wij", "tij")}
     shapes.update({f: (n * p.rows,) for f in ("zi", "ei", "pi", "ti")})
@@ -50,7 +53,7 @@ def state_from_numpy(arrays, p: BCPNNParams, device) -> N.NetworkState:
                                       device=device)
     route = arrays["drops_route"] if "drops_route" in arrays else 0
     return N.NetworkState(
-        hcus=H.HCUState(**leaves),
+        hcus=L.store_hcus(H.HCUState(**leaves), layout),
         delay_rows=tens("delay_rows", torch.int32),
         delay_count=tens("delay_count", torch.int32),
         t=tens("t", torch.int32), drops_in=tens("drops_in", torch.int32),
@@ -62,10 +65,12 @@ def state_from_numpy(arrays, p: BCPNNParams, device) -> N.NetworkState:
     )
 
 
-def state_to_numpy(state: N.NetworkState) -> dict:
+def state_to_numpy(state: N.NetworkState, layout=None) -> dict:
     """The inverse of `state_from_numpy`: every leaf as a numpy array under
-    its JAX-side name, ``base_key`` as two uint32 words."""
-    out = {f"hcus_{f}": getattr(state.hcus, f).cpu().numpy()
+    its JAX-side name, in flat order (planes stored in ``layout`` are
+    unpacked), ``base_key`` as two uint32 words."""
+    hcus = L.load_hcus(state.hcus, layout)
+    out = {f"hcus_{f}": getattr(hcus, f).cpu().numpy()
            for f in H.HCUState._fields}
     out["delay_rows"] = state.delay_rows.cpu().numpy()
     out["delay_count"] = state.delay_count.cpu().numpy()

@@ -1,6 +1,6 @@
 """BCPNN core of the port: parameters, traces, threefry RNG, HCU state, the
-flat layout, the worklist, the network queues, the eager reference and the
-tick engine."""
+plane layouts (flat and column-blocked), the worklist, the network queues,
+the eager reference and the tick engine."""
 from repro_torch.core.params import BCPNNParams, human_scale, rodent_scale, test_scale
 from repro_torch.core.engine import (DenseBackend, Simulator, WorklistBackend,
                                      select_backend, tick)

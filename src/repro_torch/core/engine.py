@@ -8,15 +8,19 @@ A network tick has one skeleton
 and only the plane update differs by backend:
 
   * `WorklistBackend` — rodent/human scales: one network-global
-    deduplicated worklist over the flat (H*R, C) planes per tick. Its row
-    phase is one `ops.fused_row_update` launch (``fused``, the default) or
-    one `ops.worklist_row_update` launch plus the i-vector writes; its
-    column phase one `ops.fused_col_update` launch (``fused_cols``) or the
+    deduplicated worklist over the stored planes per tick, which it
+    addresses in their layout (flat (H*R, C) or column-blocked tiles,
+    `repro_torch.core.layout`). Its row phase is one
+    `ops.fused_row_update` launch (``fused``, the default) or one
+    `ops.worklist_row_update` launch plus the i-vector writes; its column
+    phase one `ops.fused_col_update` launch (``fused_cols``) or the
     gathered-column `ops.col_update` of `column_updates_batched`.
   * `DenseBackend` — toy sizes: every HCU at once on the batched
-    (H, R, C) view of the same storage; mode "lazy" (one `ops.row_update`
+    (H, R, C) view of the flat planes; mode "lazy" (one `ops.row_update`
     launch over the gathered (H, A, C) row blocks, then the same column
     step) or "eager" (the dense golden model, `reference.eager_tick`).
+    Under a blocked layout the driver converts the planes to flat and back
+    once per call (`carry_in` / `carry_out`), as the JAX package does.
 
 `select_backend` picks by the JAX package's size guard (`hcu.use_worklist`);
 the flags force either. Every combination gives the trajectory of the JAX
@@ -91,30 +95,30 @@ def _bump_zj(zj, h_idx, j_idx, n: int, p: BCPNNParams):
 
 
 def column_updates_batched(hcus: H.HCUState, h_idx, j_idx, now,
-                           p: BCPNNParams) -> H.HCUState:
-    """Lazy column updates for the compacted fired batch, on the BATCHED
-    (H, R, C) view. h_idx (K,): HCU indices (== H for padding, whose writes
-    are dropped); j_idx (K,): the fired column of each entry.
+                           p: BCPNNParams, layout=None) -> H.HCUState:
+    """Lazy column updates for the compacted fired batch. h_idx (K,): HCU
+    indices (== H for padding, whose writes are dropped); j_idx (K,): the
+    fired column of each entry. The planes are stored in ``layout`` (None:
+    flat, the batched (H, R, C) view included).
 
-    Gathers exactly the K (R,)-columns that fired and their i-vectors,
-    updates them with one `ops.col_update` launch and writes them back in
-    place (`hcu.put_drop`: padding entries repeat entry 0, or rewrite their
-    own old cells on a tick where nothing fired). Returns hcus with the
-    bumped Zj."""
-    n = hcus.zij.shape[0]
+    Gathers exactly the K (R,)-columns that fired through the layout's
+    index map and their i-vectors, updates them with one `ops.col_update`
+    launch and writes them back in place (`hcu.put_drop`: padding entries
+    repeat entry 0, or rewrite their own old cells on a tick where nothing
+    fired). Returns hcus with the bumped Zj."""
+    n = hcus.zj.shape[0]
     R = p.rows
-    C = hcus.zij.shape[2]
     safe_h = torch.clamp(h_idx, max=n - 1).long()
     jl = j_idx.long()
-    # flat cell index of every (entry, row) of the fired columns, (K, R)
-    cell = ((safe_h[:, None] * R + torch.arange(R, device=h_idx.device))
-            * C + jl[:, None])
+    # stored offset of every (entry, row) of the fired columns, (K, R)
+    cell = L.as_layout(layout, R, p.cols).col_index(safe_h, jl)
     planes = tuple(getattr(hcus, f).reshape(-1)
                    for f in ("zij", "eij", "pij", "wij", "tij"))
     old = tuple(pl[cell] for pl in planes)
     # i-vector traces brought to `now` (values only, no writeback)
-    zep_i = H.ivec_decay(hcus.zi[safe_h], hcus.ei[safe_h], hcus.pi[safe_h],
-                         hcus.ti[safe_h], now, p)
+    ivr = lambda v: v.reshape(n, R)[safe_h]
+    zep_i = H.ivec_decay(ivr(hcus.zi), ivr(hcus.ei), ivr(hcus.pi),
+                         ivr(hcus.ti), now, p)
     pj_sc = hcus.pj[safe_h, jl]                                   # (K,)
     z1, e1, p1, w1, t1 = ops.col_update(
         old[0], old[1], old[2], old[4], now, zep_i.z, zep_i.p, pj_sc,
@@ -126,19 +130,11 @@ def column_updates_batched(hcus: H.HCUState, h_idx, j_idx, now,
     return hcus._replace(zj=_bump_zj(hcus.zj, h_idx, j_idx, n, p))
 
 
-def _column_batched_on_flat(hcus: H.HCUState, h_idx, j_idx, now,
-                            p: BCPNNParams, n: int) -> H.HCUState:
-    """`column_updates_batched` on the flat planes through the zero-copy
-    batched view (the unfused column step of the worklist backend)."""
-    hb = column_updates_batched(L.batched_state(hcus, n), h_idx, j_idx, now,
-                                p)
-    return L.flat_state(hb)
-
-
 def _row_worklist_common(hcus: H.HCUState, rows, t, p: BCPNNParams):
-    """Row-phase prologue on the flat layout: j-vector decay, per-HCU
-    dedup, i-vector decay and the worklist build. Returns a dict of
-    intermediates; the i-vector values are (H, A), indexed by slot."""
+    """Row-phase prologue (the i-vectors are flat under every layout):
+    j-vector decay, per-HCU dedup, i-vector decay and the worklist build.
+    Returns a dict of intermediates; the i-vector values are (H, A),
+    indexed by slot."""
     n, A = rows.shape
     R = p.rows
     hcus = H._decay_jvec(hcus, p)
@@ -158,14 +154,15 @@ def _ij_flats(hcus: H.HCUState):
 
 
 def worklist_lazy_rows(hcus: H.HCUState, rows, t, p: BCPNNParams,
-                       fused: bool = True):
-    """Lazy worklist row phase on the flat planes: dedup + worklist build,
-    then the touched rows rewritten in place. Returns (hcus', w_rows
-    (H, A, C), common).
+                       fused: bool = True, layout=None):
+    """Lazy worklist row phase on the stored planes (``layout``, None:
+    flat): dedup + worklist build, then the touched rows rewritten in
+    place. Returns (hcus', w_rows (H, A, C), common).
 
     ``fused``: one `ops.fused_row_update` call over the slot-ordered
     worklist (the H*R sentinel on padding and duplicate slots) rewrites
-    the ij-plane rows and i-vector cells and returns the weight rows.
+    the ij-plane rows and i-vector cells and returns the weight rows; it
+    reads each slot's zj / pj from the (H, C) j-vectors itself.
     Unfused: one `ops.worklist_row_update` call over the worklist
     compacted valid-first, then the i-vector writes, then the weight rows
     gathered back from the updated Wij. Both give the same bits."""
@@ -175,13 +172,13 @@ def worklist_lazy_rows(hcus: H.HCUState, rows, t, p: BCPNNParams,
     zep_i = c["zep_i"]
     coeffs = H.coeffs_ij(p)
     if fused:
-        h_of = torch.arange(n * A, device=rows.device) // A
         w_flat = ops.fused_row_update(
             *_ij_flats(hcus), hcus.zi, hcus.ei, hcus.pi, hcus.ti,
             rows=c["g_row"], now=t, counts=c["counts"].reshape(-1),
-            zj=hcus.zj[h_of], p_i=zep_i.p.reshape(-1), pj=hcus.pj[h_of],
+            zj=hcus.zj, p_i=zep_i.p.reshape(-1), pj=hcus.pj,
             zi_new=c["zi_new"].reshape(-1), ei_new=zep_i.e.reshape(-1),
-            pi_new=zep_i.p.reshape(-1), coeffs=coeffs, eps=p.eps)
+            pi_new=zep_i.p.reshape(-1), coeffs=coeffs, eps=p.eps,
+            layout=layout)
         return hcus, w_flat.reshape(n, A, p.cols), c
     HR = n * p.rows
     order = c["order"].long()
@@ -193,51 +190,39 @@ def worklist_lazy_rows(hcus: H.HCUState, rows, t, p: BCPNNParams,
         *_ij_flats(hcus), rows=rows_k, nv=c["nv"], now=t,
         counts=c["counts"].reshape(-1)[order], zj=hcus.zj[h_of],
         p_i=zep_i.p.reshape(-1)[order], pj=hcus.pj[h_of], coeffs=coeffs,
-        eps=p.eps)
+        eps=p.eps, layout=layout)
     H.write_ivecs(hcus, H.drop_redirect(c["g_safe"], c["rows_u"] < p.rows),
                   t, (c["zi_new"], zep_i.e, zep_i.p), c["iv_old"])
     g_row = c["g_row"].long()
-    w_g = hcus.wij[torch.clamp(g_row, max=HR - 1)]                # (W, C)
+    w_g = L.as_layout(layout, p.rows, p.cols).read_row(
+        hcus.wij, torch.clamp(g_row, max=HR - 1))                 # (W, C)
     w_rows = torch.where((g_row < HR)[:, None], w_g, 0.0)
     return hcus, w_rows.reshape(n, A, p.cols), c
 
 
-def _col_worklist_prologue(hcus: H.HCUState, h_idx, j_idx, now,
-                           p: BCPNNParams, n: int):
-    """Per-entry presynaptic traces brought to `now` ((K, R), values only)
-    and the per-entry postsynaptic P."""
-    R = p.rows
-    safe_h = torch.clamp(h_idx, max=n - 1).long()
-    ivr = lambda v: v.reshape(n, R)[safe_h]
-    zep_i = H.ivec_decay(ivr(hcus.zi), ivr(hcus.ei), ivr(hcus.pi),
-                         ivr(hcus.ti), now, p)
-    pj_sc = hcus.pj[safe_h, j_idx.long()]
-    return zep_i, pj_sc
-
-
 def _column_worklist(hcus: H.HCUState, h_idx, j_idx, now, p: BCPNNParams,
-                     n: int):
-    """Fused column phase (the port of `_column_worklist_megakernel`): one
-    `ops.fused_col_update` call rewrites every fired column of the five ij
-    planes in place, then the Zj bump. Runs every tick; a tick where no
-    HCU fired passes only padding entries, which the kernel skips."""
-    zep_i, pj_sc = _col_worklist_prologue(hcus, h_idx, j_idx, now, p, n)
-    ops.fused_col_update(*_ij_flats(hcus), h_idx=h_idx, j_idx=j_idx, now=now,
-                         zi_t=zep_i.z, p_i=zep_i.p, pj_sc=pj_sc,
-                         coeffs=H.coeffs_ij(p), eps=p.eps, n_hcu=n,
-                         rows=p.rows)
+                     n: int, layout=None):
+    """Fused column phase (the port of `_column_worklist_megakernel` and
+    its prologue): one `ops.fused_col_update` call decays the fired HCUs'
+    i-vectors and rewrites every fired column of the five stored ij planes
+    in place, then the Zj bump. Runs every tick; a tick where no HCU fired
+    passes only padding entries, which the kernel skips."""
+    ops.fused_col_update(*_ij_flats(hcus), hcus.zi, hcus.ei, hcus.pi,
+                         hcus.ti, hcus.pj, h_idx=h_idx, j_idx=j_idx, now=now,
+                         coeffs=H.coeffs_ij(p), coeffs_i=H.coeffs_i(p),
+                         eps=p.eps, n_hcu=n, rows=p.rows, layout=layout)
     return hcus._replace(zj=_bump_zj(hcus.zj, h_idx, j_idx, n, p))
 
 
 def worklist_col_dispatch(fused_cols: bool, h_idx, j_idx, t,
-                          p: BCPNNParams, n: int):
+                          p: BCPNNParams, n: int, layout=None):
     """The worklist backend's lazy column phase as a hcus -> hcus' closure:
     the fused column kernel (`_column_worklist`), or the gathered-column
-    step of the dense backend run on the flat planes
-    (`_column_batched_on_flat`)."""
+    step of the dense backend (`column_updates_batched`), both on the
+    planes as ``layout`` stores them."""
     if fused_cols:
-        return lambda hc: _column_worklist(hc, h_idx, j_idx, t, p, n)
-    return lambda hc: _column_batched_on_flat(hc, h_idx, j_idx, t, p, n)
+        return lambda hc: _column_worklist(hc, h_idx, j_idx, t, p, n, layout)
+    return lambda hc: column_updates_batched(hc, h_idx, j_idx, t, p, layout)
 
 
 # ---------------------------------------------------------------------------
@@ -251,12 +236,22 @@ class DenseBackend(NamedTuple):
     mode: "lazy" (timestamped row and column updates: `hcu.hcu_tick_pre`
     and `column_updates_batched`) or "eager" (the dense golden model,
     `reference.eager_tick`). The JAX package's "merged" mode is not ported
-    (ROADMAP queue A item 6)."""
+    (ROADMAP queue A item 6). layout: the planes' stored layout (None:
+    flat); a blocked one is converted to flat and back once per driver
+    call (`carry_in` / `carry_out`, pure data movement), so the per-tick
+    dense step is the flat one."""
     mode: str = "lazy"
+    layout: L.BlockedLayout | None = None
+
+    def carry_in(self, state):
+        return state._replace(hcus=L.load_hcus(state.hcus, self.layout))
+
+    def carry_out(self, state):
+        return state._replace(hcus=L.store_hcus(state.hcus, self.layout))
 
     def plane_update(self, state, rows, t, keys, p: BCPNNParams, cap: int):
-        """Row phase, WTA and column phase of one tick. Returns
-        (state', fired, h_idx, j_idx, n_dropped)."""
+        """Row phase, WTA and column phase of one tick on the flat carry.
+        Returns (state', fired, h_idx, j_idx, n_dropped)."""
         n = state.delay_rows.shape[0]
         hb = L.batched_state(state.hcus, n)
         if self.mode == "eager":
@@ -275,23 +270,33 @@ class DenseBackend(NamedTuple):
 
 
 class WorklistBackend(NamedTuple):
-    """Network-global worklist plane updates on the flat planes, lazy mode
-    (the JAX package's `WorklistBackend(mode="lazy")`). ``fused`` /
-    ``fused_cols`` pick the fused row / column kernel or the unfused
-    steps; all four combinations give the same bits."""
+    """Network-global worklist plane updates, lazy mode (the JAX package's
+    `WorklistBackend(mode="lazy")`). ``fused`` / ``fused_cols`` pick the
+    fused row / column kernel or the unfused steps; all four combinations
+    give the same bits. ``layout``: the planes' stored layout (None:
+    flat); every step addresses the blocked tiles directly, so the carry
+    is the stored state as it is."""
     fused: bool = True
     fused_cols: bool = True
+    layout: L.BlockedLayout | None = None
+
+    def carry_in(self, state):
+        return state
+
+    def carry_out(self, state):
+        return state
 
     def plane_update(self, state, rows, t, keys, p: BCPNNParams, cap: int):
         """Row phase, WTA and column phase of one tick. Returns
         (state', fired, h_idx, j_idx, n_dropped)."""
         n = state.delay_rows.shape[0]
         hcus, w_rows, c = worklist_lazy_rows(state.hcus, rows, t, p,
-                                             fused=self.fused)
+                                             fused=self.fused,
+                                             layout=self.layout)
         hcus, fired = H.periodic_update(hcus, w_rows, c["counts"], keys, p)
         h_idx, j_idx, n_drop = N.select_fired(fired, cap)
         hcus = worklist_col_dispatch(self.fused_cols, h_idx, j_idx, t, p,
-                                     n)(hcus)
+                                     n, self.layout)(hcus)
         return state._replace(hcus=hcus), fired, h_idx, j_idx, n_drop
 
 
@@ -303,28 +308,31 @@ def select_backend(p: BCPNNParams, *, eager: bool = False,
     eager golden model is dense; otherwise `hcu.use_worklist`'s size guard
     (R*C > 65536 takes the worklist backend) unless ``worklist=`` forces
     either, with ``fused`` / ``fused_cols`` (default on) choosing the
-    worklist backend's row and column kernels. Merged mode and blocked
-    plane layouts raise, naming the ROADMAP item that ports them."""
+    worklist backend's row and column kernels. ``layout`` is resolved by
+    `layout.resolve_layout` (None / "flat" / "blocked" / "blocked_tpu" /
+    a layout instance; anything else raises ValueError) and becomes the
+    backend's field. Merged mode raises, naming the ROADMAP item that
+    ports it."""
     if merged:
         raise NotImplementedError("merged mode is not ported to PyTorch yet "
                                   "(ROADMAP queue A item 6)")
-    if layout not in (None, "flat"):
-        raise NotImplementedError("blocked plane layouts are not ported to "
-                                  "PyTorch yet (ROADMAP queue A item 7)")
+    layout = L.resolve_layout(layout, p)
     if eager:
-        return DenseBackend(mode="eager")
+        return DenseBackend(mode="eager", layout=layout)
     if H.use_worklist(p, worklist):
         return WorklistBackend(fused=H.use_fused_rows(p, fused),
-                               fused_cols=H.use_fused_cols(p, fused_cols))
-    return DenseBackend(mode="lazy")
+                               fused_cols=H.use_fused_cols(p, fused_cols),
+                               layout=layout)
+    return DenseBackend(mode="lazy", layout=layout)
 
 
 def tick(state: N.NetworkState, conn: N.Connectivity, ext_rows,
          p: BCPNNParams, be, cap_fire: int | None = None):
-    """Advance the network one 1 ms tick. The ij planes and i-vectors of
-    ``state`` are rewritten in place; the other leaves of the returned
-    state are new tensors. Returns (state', fired (H,) int32) with
-    fired[h] = MCU index or -1."""
+    """Advance the network one 1 ms tick (``state`` in the backend's carry
+    layout, `carry_in`). The ij planes and i-vectors of ``state`` are
+    rewritten in place; the other leaves of the returned state are new
+    tensors. Returns (state', fired (H,) int32) with fired[h] = MCU index
+    or -1."""
     n = state.delay_rows.shape[0]
     t = state.t + 1
     cap = cap_fire or max(2, int(0.35 * n) + 1)
@@ -363,10 +371,14 @@ class Simulator:
 
     ``device`` defaults to CUDA and raises without it; pass
     ``device="cpu"`` to run the plain PyTorch versions of the kernels on
-    the CPU. The held state is in the flat layout and is updated in place
-    by every run; `hcus()` gives the batched (H, R, C) view and `flushed()`
-    a fully current copy. The connectivity and the RNG stream are those of
-    the JAX package's `Simulator` for the same key.
+    the CPU. ``layout`` (a `layout.resolve_layout` spec: None / "flat",
+    "blocked" for the (8, 4) tile, "blocked_tpu", or a `BlockedLayout` of
+    any tile) is the stored order of the ij planes, resolved once here and
+    passed to every driver; the trajectory is the same under every layout.
+    The held state is stored in that layout and is updated in place by
+    every run; `hcus()` gives the batched (H, R, C) view in flat order and
+    `flushed()` a fully current copy. The connectivity and the RNG stream
+    are those of the JAX package's `Simulator` for the same key.
     """
 
     def __init__(self, p: BCPNNParams, key=0, *, n_hcu: int | None = None,
@@ -382,12 +394,15 @@ class Simulator:
         self.n_hcu = n_hcu or p.n_hcu
         self.merged, self.eager = merged, eager
         self.worklist, self.fused, self.fused_cols = worklist, fused, fused_cols
-        self.cap_fire, self.layout = cap_fire, layout
+        self.cap_fire = cap_fire
+        # None (flat) or a BlockedLayout ("blocked" -> the (8, 4) tile)
+        self.layout = L.resolve_layout(layout, p)
         self._key = (rng.PRNGKey(key, self.device) if isinstance(key, int)
                      else key.to(self.device))
         self.conn = N.make_connectivity(p, rng.fold_in(self._key, 1),
                                         self.n_hcu)
-        self.state = N.init_network(p, self._key, self.n_hcu)
+        self.state = N.init_network(p, self._key, self.n_hcu,
+                                    layout=self.layout)
 
     def _kw(self):
         return dict(eager=self.eager, merged=self.merged,
@@ -450,8 +465,10 @@ class Simulator:
         return N.drop_counters(self.state)
 
     def hcus(self) -> H.HCUState:
-        """Batched (H, R, C) view of the held state (shares its storage)."""
-        return L.batched_state(self.state.hcus, self.n_hcu)
+        """Batched (H, R, C) view of the held state in flat order: under
+        the flat layout a view that shares its storage, under a blocked
+        layout a copy (the planes unpacked, `network.hcu_view`)."""
+        return N.hcu_view(self.state, self.layout)
 
     def flushed(self) -> H.HCUState:
         """Batched HCU state with every lazy trace brought current (new

@@ -5,8 +5,10 @@ State is structure-of-arrays; the field set is the paper's cell: Zij, Eij,
 Pij, Wij, Tij. The j-vector is decayed every tick; the i-vector and the ij
 planes are lazy (timestamped). The network holds the HCUs in the flat
 layout (`repro_torch.core.layout`): ij planes (H*R, C), i-vectors (H*R,),
-j-vectors and support (H, C). Functions here take batched tensors: a
-leading H dimension stands for JAX's `vmap` over HCUs.
+j-vectors and support (H, C); the ij planes may instead be stored
+column-blocked, which only the worklist steps address. Functions here take
+batched tensors on the flat layout: a leading H dimension stands for JAX's
+`vmap` over HCUs.
 
 The row write-back rewrites the touched rows of the planes in place. JAX
 writes it as a scatter with ``mode="drop"`` (padding slots carry the

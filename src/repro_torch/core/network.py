@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import hcu as H
+from repro_torch.core import layout as L
 from repro_torch.core import rng
 from repro_torch.core.params import BCPNNParams
 
@@ -33,7 +34,8 @@ class Connectivity(NamedTuple):
 
 
 class NetworkState(NamedTuple):
-    hcus: H.HCUState         # flat layout (see repro_torch.core.layout)
+    hcus: H.HCUState         # ij planes in the stored layout (flat unless
+                             # a blocked one is chosen, repro_torch.core.layout)
     delay_rows: torch.Tensor  # (H, D, A) int32; empty slots == R
     delay_count: torch.Tensor  # (H, D) int32
     t: torch.Tensor          # () int32 current time (ms)
@@ -69,13 +71,24 @@ def make_connectivity(p: BCPNNParams, key, n_hcu: int | None = None) -> Connecti
     return Connectivity(dest_hcu, dest_row, delay)
 
 
-def init_network(p: BCPNNParams, key, n_hcu: int | None = None) -> NetworkState:
+def hcu_view(state: NetworkState, layout=None) -> H.HCUState:
+    """The per-HCU batched (H, R, C) view of the network's HCU state in
+    flat order: a view of the stored planes under the flat layout; under a
+    blocked ``layout`` the planes are unpacked first (a copy)."""
+    return L.batched_state(L.load_hcus(state.hcus, layout),
+                           state.delay_rows.shape[0])
+
+
+def init_network(p: BCPNNParams, key, n_hcu: int | None = None,
+                 layout=None) -> NetworkState:
+    """The initial network state, its ij planes stored in ``layout`` (None:
+    flat; else a resolved `layout.BlockedLayout`)."""
     n = n_hcu or p.n_hcu
     dev = key.device
     D, A = p.max_delay, p.active_queue
     i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
     return NetworkState(
-        hcus=H.init_hcu_batch(p, n, dev),
+        hcus=L.store_hcus(H.init_hcu_batch(p, n, dev), layout),
         delay_rows=torch.full((n, D, A), p.rows, dtype=torch.int32, device=dev),
         delay_count=torch.zeros((n, D), dtype=torch.int32, device=dev),
         t=i32(0), drops_in=i32(0), drops_fire=i32(0), drops_route=i32(0),
@@ -168,12 +181,16 @@ def network_tick(state: NetworkState, conn: Connectivity, ext_rows,
                  layout=None):
     """Advance the whole network one 1 ms tick with the backend that the
     flags select (`engine.select_backend`). ext_rows (H, A_ext) int32
-    external input (padding == p.rows). Returns (state', fired (H,)); the
-    ij planes and i-vectors of ``state`` are updated in place."""
+    external input (padding == p.rows); ``layout`` the stored layout of
+    ``state``'s planes. Returns (state', fired (H,)); the ij planes and
+    i-vectors of ``state`` are updated in place (those of its flat copy
+    where the backend carries flat planes)."""
     from repro_torch.core import engine as E
     be = E.select_backend(p, eager=eager, merged=merged, worklist=worklist,
                           fused=fused, fused_cols=fused_cols, layout=layout)
-    return E.tick(state, conn, ext_rows, p, be, cap_fire)
+    state, fired = E.tick(be.carry_in(state), conn, ext_rows, p, be,
+                          cap_fire)
+    return be.carry_out(state), fired
 
 
 def network_run(state: NetworkState, conn: Connectivity, ext: torch.Tensor,
@@ -184,19 +201,22 @@ def network_run(state: NetworkState, conn: Connectivity, ext: torch.Tensor,
     """Run len(ext) ticks: ext (T, H, A_ext) int32 pre-staged external
     spikes, consumed by ticks t0+1 .. t0+T. Returns (state', fired (T, H)
     int32). A Python loop over `engine.tick` with the backend that the
-    flags select; the ij planes and i-vectors of ``state`` are updated in
-    place. Reads nothing back to the host."""
+    flags select, between one `carry_in` and one `carry_out` (the stored
+    ``layout`` to the backend's carry and back); the ij planes and
+    i-vectors of the carry are updated in place. Reads nothing back to the
+    host."""
     from repro_torch.core import engine as E
     be = E.select_backend(p, eager=eager, merged=merged, worklist=worklist,
                           fused=fused, fused_cols=fused_cols, layout=layout)
     n = state.delay_rows.shape[0]
     if ext.shape[0] == 0:
         return state, torch.zeros((0, n), dtype=torch.int32, device=ext.device)
+    state = be.carry_in(state)
     hist = []
     for e in ext:
         state, fired = E.tick(state, conn, e, p, be, cap_fire)
         hist.append(fired)
-    return state, torch.stack(hist)
+    return be.carry_out(state), torch.stack(hist)
 
 
 def run(state: NetworkState, conn: Connectivity, ext_fn, n_ticks: int,

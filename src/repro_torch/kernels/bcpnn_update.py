@@ -3,15 +3,18 @@
 versions.
 
 The worklist kernels (`fused_row_update`, `fused_col_update`,
-`worklist_row_update`) rewrite the five (H*R, C) ij planes (and, for the
-fused row phase, the four (H*R,) i-vectors) IN PLACE, where the JAX
-package's kernels returned aliased new arrays. The block kernels
-(`row_update`, `col_update`) take blocks the caller gathered from the
-planes and return five new blocks, as the JAX kernels do. The plain
-versions compute the same functions with vectorised torch ops (gather,
-`bcpnn_ref.cell_math`, masked scatter); the CPU path and the tests use
-them, and `chip_smoke.py` holds each kernel against its plain version on
-the card.
+`worklist_row_update`) rewrite the five ij planes (and, for the fused row
+phase, the four (H*R,) i-vectors) IN PLACE, where the JAX package's kernels
+returned aliased new arrays. They take the planes in the layout they are
+stored in (`repro_torch.core.layout`): flat (H*R, C) (``layout=None``) or
+column-blocked (H*Tr, Tc, xr, xc) tiles (a `BlockedLayout`), and address
+logical cell (h, r, j) at the layout's `cell_index`; pad cells are never
+touched. The block kernels (`row_update`, `col_update`) take blocks the
+caller gathered from the planes and return five new blocks, as the JAX
+kernels do. The plain versions compute the same functions with vectorised
+torch ops (the layout's index maps, `bcpnn_ref.cell_math`, scatter); the
+CPU path and the tests use them, and `chip_smoke.py` holds each kernel
+against its plain version on the card.
 
 Each wrapper counts its launches in `launches[name]`: one per kernel
 launch, nowhere else, so a run can show that its main path went through
@@ -24,7 +27,8 @@ import functools
 
 import torch
 
-from repro_torch.core.traces import DecayCoeffs
+from repro_torch.core import layout as L
+from repro_torch.core.traces import ZEP, DecayCoeffs, decay_zep
 from repro_torch.kernels import _build
 from repro_torch.kernels.bcpnn_ref import (cell_math, col_update_ref,
                                             row_update_ref)
@@ -32,12 +36,16 @@ from repro_torch.kernels.bcpnn_ref import (cell_math, col_update_ref,
 launches = {"fused_row_update": 0, "fused_col_update": 0,
             "worklist_row_update": 0, "row_update": 0, "col_update": 0}
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_COEFFS = [ctypes.c_float] * 8
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_COEFFS = [_F] * 8
+_TILING = [_I] * 6                       # R, C, xr, xc, Tr, Tc
 _ARGTYPES = {
-    "bcpnn_fused_row_update": [_P] * 19 + [_I, _I, _LL] + _COEFFS + [_P],
-    "bcpnn_fused_col_update": [_P] * 11 + [_I] * 4 + _COEFFS + [_P],
-    "bcpnn_worklist_row_update": [_P] * 12 + [_I, _I, _LL] + _COEFFS + [_P],
+    "bcpnn_fused_row_update": [_P] * 19 + [_I, _I, _LL] + _TILING + [_I]
+    + _COEFFS + [_P],
+    "bcpnn_fused_col_update": [_P] * 13 + [_I, _I] + _TILING + _COEFFS
+    + [_F] * 6 + [_P],
+    "bcpnn_worklist_row_update": [_P] * 12 + [_I, _LL] + _TILING + [_I]
+    + _COEFFS + [_P],
     "bcpnn_row_update": [_P] * 14 + [_LL, _I, _I] + _COEFFS + [_P],
     "bcpnn_col_update": [_P] * 13 + [_LL, _I] + _COEFFS + [_P],
 }
@@ -78,20 +86,61 @@ def _check_cuda(t):
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {where}")
 
 
-def _check_planes(planes, ivecs=None):
+def _geometry(zij, layout, rows: int | None = None):
+    """The tile geometry of stored planes and their number of HCUs.
+
+    Flat planes (``layout`` None or a FlatLayout) are (H*R, C), and their
+    geometry is `layout.FlatLayout`, the tile (1, C); where ``rows`` (R) is
+    not given, they are read as one HCU of H*R rows, which addresses the
+    same cells. Blocked planes must have the layout's `plane_shape`."""
+    lay = L.as_blocked(layout)
+    if lay is None:
+        if zij.dim() != 2:
+            raise ValueError(f"flat planes must be (H*R, C), got "
+                             f"{tuple(zij.shape)}")
+        HR, C = zij.shape
+        R = rows or HR
+        if R <= 0 or HR % R:
+            raise ValueError(f"flat planes of {HR} rows, not HCUs of {R}")
+        return L.FlatLayout(R, C), HR // R
+    if zij.dim() != 4 or tuple(zij.shape[1:]) != lay.plane_shape(1)[1:] \
+            or zij.shape[0] % lay.row_tiles_n:
+        raise ValueError(f"planes of shape {tuple(zij.shape)} are not stored "
+                         f"in {lay}")
+    if rows is not None and rows != lay.rows:
+        raise ValueError(f"rows={rows}, the layout has {lay.rows}")
+    return lay, zij.shape[0] // lay.row_tiles_n
+
+
+def _check_planes(planes, layout, rows=None, ivecs=None):
+    """Checks the five stored planes (and the four i-vectors); returns
+    (device, geometry, number of HCUs)."""
     zij = planes[0]
     _check_cuda(zij)
-    if zij.dim() != 2:
-        raise ValueError(f"planes must be (H*R, C), got {tuple(zij.shape)}")
+    geom, n = _geometry(zij, layout, rows)
     dev, shape = zij.device, tuple(zij.shape)
     for nm, t in zip(("zij", "eij", "pij", "wij"), planes[:4]):
         _check(nm, t, torch.float32, shape, dev)
     _check("tij", planes[4], torch.int32, shape, dev)
     if ivecs is not None:
+        HR = (n * geom.rows,)
         for nm, t in zip(("zi", "ei", "pi"), ivecs[:3]):
-            _check(nm, t, torch.float32, shape[:1], dev)
-        _check("ti", ivecs[3], torch.int32, shape[:1], dev)
-    return dev, shape
+            _check(nm, t, torch.float32, HR, dev)
+        _check("ti", ivecs[3], torch.int32, HR, dev)
+    return dev, geom, n
+
+
+def _tiling_args(geom):
+    return (geom.rows, geom.cols, geom.xr, geom.xc, geom.row_tiles_n,
+            geom.col_tiles_n)
+
+
+def _vec_rows(geom, tensors) -> int:
+    """1 where the row kernels may walk a row in 16-byte segments of 4
+    cells: whole tiles of a multiple of 4 cells in a row (no padded
+    columns) and 16-byte aligned operands; else 0 (cell by cell)."""
+    return int(geom.xc % 4 == 0 and geom.cols % geom.xc == 0
+               and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def _coeff_args(k: DecayCoeffs, eps: float):
@@ -104,53 +153,70 @@ def _raise_on(rc: int, name: str):
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
 
 
+def _flat(planes):
+    """The stored planes as 1-D views, for the layout's index maps."""
+    return tuple(t.view(-1) for t in planes)
+
+
 # --------------------------------------------------------------------------
 # row phase
 # --------------------------------------------------------------------------
 
 def fused_row_update_kernel(zij, eij, pij, wij, tij, zi, ei, pi, ti, rows,
                             now, counts, zj, p_i, pj, zi_new, ei_new, pi_new,
-                            coeffs: DecayCoeffs, eps: float):
+                            coeffs: DecayCoeffs, eps: float, layout=None):
     """The worklist row phase as one CUDA launch (`fused_row_kernel`).
 
     Replaces `repro/kernels/bcpnn_update.py:fused_row_update_kernel_call`
-    (`_fused_row_kernel`). For each of the W slot-ordered entries it applies
-    the cell math to the plane row ``rows[s]`` with dz = counts[s]*zj[s],
-    p_pre = p_i[s] and p_post = pj[s], stamps Tij = now, writes
-    zi/ei/pi_new[s] into the i-vectors, stamps ti = now, and emits the
-    weight row into the returned (W, C) buffer. Sentinel slots
-    (rows[s] >= H*R) write nothing but a zero weight row.
+    (`_fused_row_kernel`). The W = H*A slot-ordered entries are A per HCU:
+    slot s belongs to HCU s // A. Each valid slot applies the cell math to
+    the logical row ``rows[s]`` (a global flat row index) with
+    dz = counts[s]*zj[s // A], p_pre = p_i[s] and p_post = pj[s // A],
+    stamps Tij = now, writes zi/ei/pi_new[s] into the i-vectors, stamps
+    ti = now, and emits the weight row into the returned (W, C) buffer.
+    Sentinel slots (rows[s] >= H*R) write nothing but a zero weight row.
 
-    Bound on the H100: bytes. A valid slot moves 12*C*4 bytes (reads z, e,
-    p, t, zj, pj; writes z, e, p, w, t, wrow) for ~33 float32 ops (4
-    transcendentals among them) per cell. Design: one
-    warp per slot walking its contiguous C-cell row, so every plane access
-    is coalesced and a row is read and written exactly once; the TPU's
-    (8, 128) tiles, junk row and per-call `_pad2` copies of the planes are
-    gone (masking is a bounds check on the row index).
+    Bound on the H100: bytes. A valid slot moves 10*C*4 bytes (reads z, e,
+    p, t; writes z, e, p, w, t and its weight row) for ~33 float32 ops (4
+    transcendentals among them) per cell; the (H, C) j-vectors are read in
+    place, once per HCU from DRAM. Design: one warp per slot, one lane per
+    16-byte segment of 4 cells (float4 / int4), so a row of C <= 128 cells
+    is one step of loads with no dependent iteration; on the flat layout a
+    row is C/4 contiguous segments, on an (xr, 4) tile C/4 segments
+    xr*16 bytes apart. Where a row does not split into whole 4-cell
+    segments (a tile such as (7, 5)), the lanes walk single cells. The
+    TPU's (8, 128) tiles, junk row and per-call `_pad2` copies of the planes
+    are gone (masking is a bounds check on the row index).
 
-    Planes (H*R, C) and i-vectors (H*R,) are rewritten in place. rows (W,)
-    int32, now an int32 one-element tensor (read on the device), counts /
-    p_i / *_new (W,) and zj / pj (W, C) float32, all contiguous on one CUDA
-    device. Launches on the current stream and never synchronises.
+    Planes (stored in ``layout``) and i-vectors (H*R,) are rewritten in
+    place. rows (W,) int32, now an int32 one-element tensor (read on the
+    device), counts / p_i / *_new (W,) and zj / pj (H, C) float32, all
+    contiguous on one CUDA device. Launches on the current stream and
+    never synchronises.
     """
     planes, ivecs = (zij, eij, pij, wij, tij), (zi, ei, pi, ti)
-    dev, (HR, C) = _check_planes(planes, ivecs)
+    dev, geom, n = _check_planes(planes, layout, ivecs=ivecs)
+    C = geom.cols
     W = rows.shape[0] if torch.is_tensor(rows) else -1
     _check("rows", rows, torch.int32, (W,), dev)
     _check_one("now", now, dev)
     for nm, t in (("counts", counts), ("p_i", p_i), ("zi_new", zi_new),
                   ("ei_new", ei_new), ("pi_new", pi_new)):
         _check(nm, t, torch.float32, (W,), dev)
-    _check("zj", zj, torch.float32, (W, C), dev)
-    _check("pj", pj, torch.float32, (W, C), dev)
+    H = zj.shape[0] if torch.is_tensor(zj) and zj.dim() == 2 else -1
+    _check("zj", zj, torch.float32, (H, C), dev)
+    _check("pj", pj, torch.float32, (H, C), dev)
+    if H <= 0 or W % H:
+        raise ValueError(f"{W} slots are not A per HCU of {H}")
     wrow = torch.empty((W, C), dtype=torch.float32, device=dev)
     if W == 0:
         return wrow
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [t.data_ptr() for t in (*planes, *ivecs, rows, now, counts, zj,
                                    p_i, pj, zi_new, ei_new, pi_new, wrow)]
-    rc = _lib().bcpnn_fused_row_update(*ptrs, W, C, HR,
+    vec = _vec_rows(geom, (*planes, zj, pj, wrow))
+    rc = _lib().bcpnn_fused_row_update(*ptrs, W, W // H, n * geom.rows,
+                                       *_tiling_args(geom), vec,
                                        *_coeff_args(coeffs, eps), stream)
     _raise_on(rc, "fused_row_update")
     launches["fused_row_update"] += 1
@@ -159,23 +225,28 @@ def fused_row_update_kernel(zij, eij, pij, wij, tij, zi, ei, pi, ti, rows,
 
 def fused_row_update_plain(zij, eij, pij, wij, tij, zi, ei, pi, ti, rows,
                            now, counts, zj, p_i, pj, zi_new, ei_new, pi_new,
-                           coeffs: DecayCoeffs, eps: float):
+                           coeffs: DecayCoeffs, eps: float, layout=None):
     """Plain PyTorch version of `fused_row_update_kernel` (same arguments,
     same in-place effect, same returned weight rows): gather the valid
-    slots' rows, run the cell math, scatter back."""
-    HR, C = zij.shape
-    sel = torch.nonzero((rows >= 0) & (rows < HR)).squeeze(1)
-    r = rows[sel].long()
-    dt = (now - tij[r]).to(torch.float32)
-    z1, e1, p1, w1 = cell_math(zij[r], eij[r], pij[r], dt,
-                               counts[sel, None] * zj[sel], p_i[sel, None],
-                               pj[sel], coeffs, eps)
-    zij[r], eij[r], pij[r], wij[r] = z1, e1, p1, w1
-    tij[r] = now.to(tij.dtype).reshape(())
-    zi[r], ei[r], pi[r] = zi_new[sel], ei_new[sel], pi_new[sel]
-    ti[r] = now.to(ti.dtype).reshape(())
-    wrow = torch.zeros((rows.shape[0], C), dtype=torch.float32,
-                       device=zij.device)
+    slots' rows through the layout's index map, run the cell math, scatter
+    back."""
+    geom, n = _geometry(zij, layout)
+    zf, ef, pf, wf, tf = _flat((zij, eij, pij, wij, tij))
+    W = rows.shape[0]
+    A = W // zj.shape[0]
+    sel = torch.nonzero((rows >= 0) & (rows < n * geom.rows)).squeeze(1)
+    g = rows[sel].long()
+    idx = geom.row_index(g)                                      # (nv, C)
+    h = sel // A
+    dt = (now - tf[idx]).to(torch.float32)
+    z1, e1, p1, w1 = cell_math(zf[idx], ef[idx], pf[idx], dt,
+                               counts[sel, None] * zj[h], p_i[sel, None],
+                               pj[h], coeffs, eps)
+    zf[idx], ef[idx], pf[idx], wf[idx] = z1, e1, p1, w1
+    tf[idx] = now.to(tf.dtype).reshape(())
+    zi[g], ei[g], pi[g] = zi_new[sel], ei_new[sel], pi_new[sel]
+    ti[g] = now.to(ti.dtype).reshape(())
+    wrow = torch.zeros((W, geom.cols), dtype=torch.float32, device=zij.device)
     wrow[sel] = w1
     return wrow
 
@@ -184,74 +255,91 @@ def fused_row_update_plain(zij, eij, pij, wij, tij, zi, ei, pi, ti, rows,
 # column phase
 # --------------------------------------------------------------------------
 
-def fused_col_update_kernel(zij, eij, pij, wij, tij, h_idx, j_idx, now, zi_t,
-                            p_i, pj_sc, coeffs: DecayCoeffs, eps: float,
-                            n_hcu: int, rows: int):
+def fused_col_update_kernel(zij, eij, pij, wij, tij, zi, ei, pi, ti, pj,
+                            h_idx, j_idx, now, coeffs: DecayCoeffs,
+                            coeffs_i: DecayCoeffs, eps: float, n_hcu: int,
+                            rows: int, layout=None):
     """The worklist column phase as one CUDA launch (`fused_col_kernel`).
 
     Replaces `repro/kernels/bcpnn_update.py:fused_col_update_kernel_call`
-    (`_fused_col_kernel`). For each fired entry e with h_idx[e] < n_hcu it
-    updates the ``rows`` cells of column j_idx[e] in HCU h_idx[e] with
-    dz = zi_t[e, r], p_pre = p_i[e, r] and p_post = pj_sc[e], and stamps
+    (`_fused_col_kernel`) together with the column prologue around it
+    (`repro/core/engine.py:_col_worklist_prologue`). For each fired entry e
+    with h_idx[e] < n_hcu, with h = h_idx[e] and j = j_idx[e], the kernel
+    brings HCU h's i-vector traces to ``now`` (Z_i and P_i of
+    `traces.decay_zep` over now - ti, with ``coeffs_i``; the i-vectors are
+    not written), then updates the ``rows`` cells of column j in HCU h with
+    dz = Z_i[r], p_pre = P_i[r] and p_post = pj[h, j], and stamps
     Tij = now. Padding entries (h_idx == n_hcu) return at once.
 
-    Bound on the H100: bytes, and worse than the cell count says: the R
-    cells of a column lie C*4 bytes apart, so each of the 9 plane accesses
-    per cell (read z, e, p, t; write z, e, p, w, t) moves a whole 32-byte
-    sector for 4 useful bytes. Design: a (row-block, entry) grid with one
-    thread per cell and plain bounds checks, on the unpadded planes; the
-    TPU's lane tiles, iota lane masks, junk row-block, per-call padded plane
-    copies, transposed lane-padded trace buffers and the K <= 128 limit are
-    gone. The strided access is accepted in this version; its cost against
-    the bound is in PERF.md (the column-blocked layout is the known fix).
+    Bound on the H100: bytes. The function moves 52 bytes a cell (reads z,
+    e, p, t and zi, ei, pi, ti; writes z, e, p, w, t), but the R cells of a
+    column are not contiguous, and DRAM and L2 move 32-byte sectors. Flat,
+    a column's cells lie C*4 bytes apart: each of the 9 plane accesses of a
+    cell costs a sector for 4 useful bytes. On an (xr, 4) tile the column is
+    R/xr runs of xr cells 16 bytes apart, contiguous xr*16-byte blocks, so
+    a sector serves two cells. Design: one thread per row of an entry,
+    neighbouring lanes on neighbouring rows (a warp reads runs of one tile
+    column), its eight loads issued before its arithmetic; on the H100 one
+    row a thread beat several rows a thread, whose extra loads in flight
+    bought nothing while the grid lost blocks. Nothing is reused, so
+    nothing is staged in shared memory. The (K, R) gathers and decay of
+    the i-vectors that the prologue ran as separate launches are gone, as
+    are the TPU's lane tiles, iota lane masks, junk row-block, padded plane
+    copies and the K <= 128 limit.
 
-    Planes (H*R, C) are rewritten in place. h_idx, j_idx (K,) int32; now an
-    int32 one-element tensor; zi_t, p_i (K, rows) and pj_sc (K,) float32.
-    Launches on the current stream and never synchronises.
+    Planes (stored in ``layout``, HCUs of ``rows`` rows) are rewritten in
+    place. zi / ei / pi (H*R,) float32 and ti int32; pj (H, C) float32;
+    h_idx, j_idx (K,) int32; now an int32 one-element tensor. Launches on
+    the current stream and never synchronises.
     """
     planes = (zij, eij, pij, wij, tij)
-    dev, (HR, C) = _check_planes(planes)
-    if HR != n_hcu * rows:
-        raise ValueError(f"planes hold {HR} rows, expected {n_hcu}*{rows}")
+    dev, geom, n = _check_planes(planes, layout, rows, (zi, ei, pi, ti))
+    if n != n_hcu:
+        raise ValueError(f"planes hold {n} HCUs, expected {n_hcu}")
     K = h_idx.shape[0] if torch.is_tensor(h_idx) else -1
     _check("h_idx", h_idx, torch.int32, (K,), dev)
     _check("j_idx", j_idx, torch.int32, (K,), dev)
     _check_one("now", now, dev)
-    _check("zi_t", zi_t, torch.float32, (K, rows), dev)
-    _check("p_i", p_i, torch.float32, (K, rows), dev)
-    _check("pj_sc", pj_sc, torch.float32, (K,), dev)
+    _check("pj", pj, torch.float32, (n_hcu, geom.cols), dev)
     if K == 0 or rows == 0:
         return
     if K > 65535:
         raise ValueError(f"fired batch of {K} exceeds the grid's y limit")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [t.data_ptr() for t in (*planes, h_idx, j_idx, now, zi_t, p_i,
-                                   pj_sc)]
-    rc = _lib().bcpnn_fused_col_update(*ptrs, K, rows, C, n_hcu,
-                                       *_coeff_args(coeffs, eps), stream)
+    ptrs = [t.data_ptr() for t in (*planes, zi, ei, pi, ti, pj, h_idx, j_idx,
+                                   now)]
+    rc = _lib().bcpnn_fused_col_update(*ptrs, K, n_hcu, *_tiling_args(geom),
+                                       *_coeff_args(coeffs, eps),
+                                       *_coeff_args(coeffs_i, 0.0)[:6],
+                                       stream)
     _raise_on(rc, "fused_col_update")
     launches["fused_col_update"] += 1
 
 
-def fused_col_update_plain(zij, eij, pij, wij, tij, h_idx, j_idx, now, zi_t,
-                           p_i, pj_sc, coeffs: DecayCoeffs, eps: float,
-                           n_hcu: int, rows: int):
+def fused_col_update_plain(zij, eij, pij, wij, tij, zi, ei, pi, ti, pj,
+                           h_idx, j_idx, now, coeffs: DecayCoeffs,
+                           coeffs_i: DecayCoeffs, eps: float, n_hcu: int,
+                           rows: int, layout=None):
     """Plain PyTorch version of `fused_col_update_kernel` (same arguments,
-    same in-place effect): gather the valid entries' columns, run the cell
-    math, scatter back."""
-    C = zij.shape[1]
+    same in-place effect): the valid entries' i-vectors decayed with
+    `decay_zep` (the operation order of `hcu.ivec_decay`), their columns
+    gathered through the layout's index map, the cell math, scatter
+    back."""
+    geom, _ = _geometry(zij, layout, rows)
+    zf, ef, pf, wf, tf = _flat((zij, eij, pij, wij, tij))
+    C = geom.cols
     ok = (h_idx >= 0) & (h_idx < n_hcu) & (j_idx >= 0) & (j_idx < C)
     sel = torch.nonzero(ok).squeeze(1)
-    r_ix = h_idx[sel].long()[:, None] * rows \
-        + torch.arange(rows, device=zij.device)[None, :]
-    c_ix = j_idx[sel].long()[:, None].expand(-1, rows)
-    dt = (now - tij[r_ix, c_ix]).to(torch.float32)
-    z1, e1, p1, w1 = cell_math(zij[r_ix, c_ix], eij[r_ix, c_ix],
-                               pij[r_ix, c_ix], dt, zi_t[sel], p_i[sel],
-                               pj_sc[sel, None], coeffs, eps)
-    zij[r_ix, c_ix], eij[r_ix, c_ix] = z1, e1
-    pij[r_ix, c_ix], wij[r_ix, c_ix] = p1, w1
-    tij[r_ix, c_ix] = now.to(tij.dtype).reshape(())
+    h, j = h_idx[sel].long(), j_idx[sel].long()
+    idx = geom.col_index(h, j)                                   # (k, R)
+    g = h[:, None] * rows + torch.arange(rows, device=zij.device)
+    zep_i = decay_zep(ZEP(zi[g], ei[g], pi[g]),
+                      (now - ti[g]).to(torch.float32), coeffs_i)
+    dt = (now - tf[idx]).to(torch.float32)
+    z1, e1, p1, w1 = cell_math(zf[idx], ef[idx], pf[idx], dt, zep_i.z,
+                               zep_i.p, pj[h, j][:, None], coeffs, eps)
+    zf[idx], ef[idx], pf[idx], wf[idx] = z1, e1, p1, w1
+    tf[idx] = now.to(tf.dtype).reshape(())
 
 
 # --------------------------------------------------------------------------
@@ -259,31 +347,33 @@ def fused_col_update_plain(zij, eij, pij, wij, tij, h_idx, j_idx, now, zi_t,
 # --------------------------------------------------------------------------
 
 def worklist_row_update_kernel(zij, eij, pij, wij, tij, rows, nv, now, counts,
-                               zj, p_i, pj, coeffs: DecayCoeffs, eps: float):
+                               zj, p_i, pj, coeffs: DecayCoeffs, eps: float,
+                               layout=None):
     """The unfused worklist row update as one CUDA launch
     (`worklist_row_kernel`).
 
     Replaces `repro/kernels/bcpnn_update.py:worklist_update_kernel_call`
     (`_worklist_kernel`). The W entries are compacted valid-first: entry i
-    is live when i < nv and rows[i] is a plane row, and then applies the
-    cell math to that row with dz = counts[i]*zj[i], p_pre = p_i[i] and
-    p_post = pj[i], and stamps Tij = now. Other entries write nothing,
-    whatever their row holds. The i-vectors and the weight rows are the
-    caller's.
+    is live when i < nv and rows[i] is a logical plane row, and then
+    applies the cell math to that row with dz = counts[i]*zj[i],
+    p_pre = p_i[i] and p_post = pj[i], and stamps Tij = now. Other entries
+    write nothing, whatever their row holds. The i-vectors and the weight
+    rows are the caller's.
 
     Bound on the H100: bytes. A live entry moves 11*C*4 bytes (reads z, e,
     p, t, zj, pj; writes z, e, p, w, t) for ~33 float32 ops per cell.
-    Design: that of `fused_row_update_kernel` (one warp per entry walking
-    its contiguous row, the same `row_walk` device function), with nv read
+    Design: that of `fused_row_update_kernel` (one warp per entry, one lane
+    per 4-cell segment, the same `row_walk` device function), with nv read
     on the device so the launch needs no host value; the TPU's junk row and
     per-call `_pad2` plane copies are gone.
 
-    Planes (H*R, C) are rewritten in place. rows (W,) int32; nv and now
-    int32 one-element tensors; counts / p_i (W,) and zj / pj (W, C)
-    float32. Launches on the current stream and never synchronises.
+    Planes (stored in ``layout``) are rewritten in place. rows (W,) int32;
+    nv and now int32 one-element tensors; counts / p_i (W,) and zj / pj
+    (W, C) float32. Launches on the current stream and never synchronises.
     """
     planes = (zij, eij, pij, wij, tij)
-    dev, (HR, C) = _check_planes(planes)
+    dev, geom, n = _check_planes(planes, layout)
+    C = geom.cols
     W = rows.shape[0] if torch.is_tensor(rows) else -1
     _check("rows", rows, torch.int32, (W,), dev)
     _check_one("nv", nv, dev)
@@ -297,29 +387,33 @@ def worklist_row_update_kernel(zij, eij, pij, wij, tij, rows, nv, now, counts,
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [t.data_ptr() for t in (*planes, rows, nv, now, counts, zj, p_i,
                                    pj)]
-    rc = _lib().bcpnn_worklist_row_update(*ptrs, W, C, HR,
+    vec = _vec_rows(geom, (*planes, zj, pj))
+    rc = _lib().bcpnn_worklist_row_update(*ptrs, W, n * geom.rows,
+                                          *_tiling_args(geom), vec,
                                           *_coeff_args(coeffs, eps), stream)
     _raise_on(rc, "worklist_row_update")
     launches["worklist_row_update"] += 1
 
 
 def worklist_row_update_plain(zij, eij, pij, wij, tij, rows, nv, now, counts,
-                              zj, p_i, pj, coeffs: DecayCoeffs, eps: float):
+                              zj, p_i, pj, coeffs: DecayCoeffs, eps: float,
+                              layout=None):
     """Plain PyTorch version of `worklist_row_update_kernel` (same
-    arguments, same in-place effect): gather the live entries' rows, run
-    the cell math, scatter back."""
-    HR = zij.shape[0]
+    arguments, same in-place effect): gather the live entries' rows through
+    the layout's index map, run the cell math, scatter back."""
+    geom, n = _geometry(zij, layout)
+    zf, ef, pf, wf, tf = _flat((zij, eij, pij, wij, tij))
     W = rows.shape[0]
     live = ((torch.arange(W, device=rows.device) < nv.reshape(()))
-            & (rows >= 0) & (rows < HR))
+            & (rows >= 0) & (rows < n * geom.rows))
     sel = torch.nonzero(live).squeeze(1)
-    r = rows[sel].long()
-    dt = (now - tij[r]).to(torch.float32)
-    z1, e1, p1, w1 = cell_math(zij[r], eij[r], pij[r], dt,
+    idx = geom.row_index(rows[sel].long())
+    dt = (now - tf[idx]).to(torch.float32)
+    z1, e1, p1, w1 = cell_math(zf[idx], ef[idx], pf[idx], dt,
                                counts[sel, None] * zj[sel], p_i[sel, None],
                                pj[sel], coeffs, eps)
-    zij[r], eij[r], pij[r], wij[r] = z1, e1, p1, w1
-    tij[r] = now.to(tij.dtype).reshape(())
+    zf[idx], ef[idx], pf[idx], wf[idx] = z1, e1, p1, w1
+    tf[idx] = now.to(tf.dtype).reshape(())
 
 
 # --------------------------------------------------------------------------

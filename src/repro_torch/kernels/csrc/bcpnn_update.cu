@@ -3,21 +3,45 @@
 //   bcpnn_fused_row_update     replaces repro/kernels/bcpnn_update.py
 //                              fused_row_update_kernel_call (_fused_row_kernel)
 //   bcpnn_fused_col_update     replaces fused_col_update_kernel_call
-//                              (_fused_col_kernel)
+//                              (_fused_col_kernel) and the column prologue
+//                              of repro/core/engine.py (_col_worklist_prologue)
 //   bcpnn_worklist_row_update  replaces worklist_update_kernel_call
 //                              (_worklist_kernel)
 //   bcpnn_row_update           replaces row_update_kernel_call (_row_kernel)
 //   bcpnn_col_update           replaces col_update_kernel_call (_col_kernel)
 //
-// The first three rewrite the five unpadded (H*R, C) ij planes (z, e, p, w
-// float32 and t int32) in place through raw pointers; the fused row kernel
-// also rewrites the four (H*R,) i-vectors and emits the per-slot weight rows.
-// The last two are elementwise passes over blocks the caller gathered from
-// the planes: they read z, e, p, t and write five fresh output blocks. The
-// per-cell arithmetic is cell_math of repro_torch/kernels/bcpnn_ref.py in the
-// same operation order (expf/logf in float32); the library is built with
-// -fmad=false so no multiply-add is contracted that the plain version does
-// not contract either.
+// The first three rewrite the five ij planes (z, e, p, w float32 and t int32)
+// in place through raw pointers, in the plane layout they are stored in
+// (repro_torch/core/layout.py): column-blocked (H*Tr, Tc, xr, xc) tiles, with
+// the flat (H*R, C) planes as the tile (1, C). Logical cell (h, r, j) lies at
+//
+//   ((h*Tr + r/xr)*Tc + j/xc)*xr*xc + (r%xr)*xc + j%xc      (64-bit)
+//
+// and pad cells (r >= R or j >= C) are never read or written. The fused row
+// kernel also rewrites the four (H*R,) i-vectors and emits the per-slot
+// weight rows. The last two are elementwise passes over blocks the caller
+// gathered from the planes: they read z, e, p, t and write five fresh output
+// blocks. The per-cell arithmetic is cell_math of
+// repro_torch/kernels/bcpnn_ref.py, and the i-vector decay decay_zep of
+// repro_torch/core/traces.py, in the same operation order (expf/logf in
+// float32); the library is built with -fmad=false so no multiply-add is
+// contracted that the plain version does not contract either.
+//
+// What bounds them on the H100 is bytes: ~33 float32 operations a cell
+// against 36-52 bytes of plane and vector traffic, and every cell is touched
+// once a call. There is no reuse to stage, so neither shared memory nor TMA
+// has work to do here: the designs below are about how the bytes are
+// fetched. A row is C contiguous cells (flat) or C/xc segments of xc cells
+// (blocked); the row kernels give one warp a row and one lane a 16-byte
+// segment of 4 cells, so a row's loads are issued at once. A column is R
+// cells C*4 bytes apart (flat: one 32-byte sector a cell) or R/xr runs of xr
+// cells xc*4 bytes apart (blocked (xr, 4): one sector per two cells, in
+// contiguous xr*16-byte runs); the column kernel puts a warp's lanes on
+// neighbouring rows, one row a thread: on the H100 that beat several rows a
+// thread with all their loads issued first, and streaming cache hints
+// (ld/st.global.cs) made neither kernel faster. DRAM moves 64-byte bursts,
+// so a 16-byte row segment of an (xr, 4) tile costs four times its bytes:
+// the blocked layout trades slower rows for much faster columns.
 //
 // The current time (and the worklist's valid count) arrive as device
 // pointers, so a launch needs no value from the host and the tick never
@@ -34,6 +58,24 @@ struct Coeffs {
   float inv_tau_z, inv_tau_e, inv_tau_p, c_ze, c_ep, c_zp, eps, eps2;
 };
 
+// The stored plane's tile geometry: R x C logical cells per HCU in
+// Tr x Tc tiles of xr x xc cells (flat: xr = 1, xc = C, Tr = R, Tc = 1).
+struct Tiling {
+  int R, C, xr, xc, Tr, Tc;
+};
+
+// Offset of HCU h's logical row r, cell 0 (add col_off for column j).
+__device__ __forceinline__ long long row_off(const Tiling& g, long long h,
+                                             int r) {
+  return ((h * g.Tr + r / g.xr) * g.Tc) * (long long)(g.xr * g.xc) +
+         (long long)((r % g.xr) * g.xc);
+}
+
+// Offset of column j within a row (relative to row_off).
+__device__ __forceinline__ long long col_off(const Tiling& g, int j) {
+  return (long long)(j / g.xc) * (g.xr * g.xc) + j % g.xc;
+}
+
 __device__ __forceinline__ void cell_math(float z, float e, float p, float dt,
                                           float dz, float p_pre, float p_post,
                                           const Coeffs& k, float& z1,
@@ -48,37 +90,82 @@ __device__ __forceinline__ void cell_math(float z, float e, float p, float dt,
   w1 = logf((p1 + k.eps2) / ((p_pre + k.eps) * (p_post + k.eps)));
 }
 
-constexpr int kRowWarps = 8;      // worklist slots per block (one warp each)
-constexpr int kColThreads = 256;  // column rows per block
+// decay_zep of an i-vector trace over dt: the Z and P it has at `now`.
+__device__ __forceinline__ void zp_decay(float z, float e, float p, float dt,
+                                         const Coeffs& k, float& z1,
+                                         float& p1) {
+  const float ez = expf(-dt * k.inv_tau_z);
+  const float ee = expf(-dt * k.inv_tau_e);
+  const float ep = expf(-dt * k.inv_tau_p);
+  p1 = (p * ep + (e - z * k.c_ze) * (ee - ep) * k.c_ep) +
+       z * k.c_ze * (ez - ep) * k.c_zp;
+  z1 = z * ez;
+}
+
+constexpr int kRowWarps = 8;        // worklist slots per block (one warp each)
+constexpr int kColThreads = 256;    // column rows per block
 constexpr int kBlockThreads = 256;  // cells per block of the block kernels
 
-// One warp rewrites plane row `base / C` in place: its lanes stride over the
-// C columns, so every plane access is a coalesced run of consecutive cells.
-// dz = cnt * zj_row[c], p_pre, p_post = pj_row[c]; Tij = now. The weight row
-// also goes to wrow_out where that is not null.
+// One warp rewrites HCU h's logical row r in place: dz = cnt * zj_row[c],
+// p_pre, p_post = pj_row[c]; Tij = now. The weight row also goes to wrow_out
+// where that is not null. kVec (xc % 4 == 0, C % xc == 0, 16-byte aligned
+// pointers): lane l takes the 4-cell segment at column 4l, whose cells are
+// contiguous in the plane, as float4 / int4 loads and stores; C <= 128 is one
+// step of loads with no dependent iteration. Otherwise (a tile such as
+// (7, 5)) the lanes stride over single cells.
+template <bool kVec>
 __device__ __forceinline__ void row_walk(
     float* __restrict__ zij, float* __restrict__ eij, float* __restrict__ pij,
-    float* __restrict__ wij, int* __restrict__ tij, long long base,
-    const float* __restrict__ zj_row, const float* __restrict__ pj_row,
-    float cnt, float p_pre, int now, int C, int lane, const Coeffs& k,
-    float* __restrict__ wrow_out) {
-  for (int c = lane; c < C; c += 32) {
-    const long long i = base + c;
-    const float dt = (float)(now - tij[i]);
-    float z1, e1, p1, w1;
-    cell_math(zij[i], eij[i], pij[i], dt, cnt * zj_row[c], p_pre, pj_row[c],
-              k, z1, e1, p1, w1);
-    zij[i] = z1;
-    eij[i] = e1;
-    pij[i] = p1;
-    wij[i] = w1;
-    tij[i] = now;
-    if (wrow_out != nullptr) wrow_out[c] = w1;
+    float* __restrict__ wij, int* __restrict__ tij, const Tiling& g,
+    long long base, const float* __restrict__ zj_row,
+    const float* __restrict__ pj_row, float cnt, float p_pre, int now,
+    int lane, const Coeffs& k, float* __restrict__ wrow_out) {
+  if constexpr (kVec) {
+    for (int c = 4 * lane; c < g.C; c += 128) {
+      const long long i = base + col_off(g, c);
+      const float4 z = *reinterpret_cast<const float4*>(zij + i);
+      const float4 e = *reinterpret_cast<const float4*>(eij + i);
+      const float4 p = *reinterpret_cast<const float4*>(pij + i);
+      const int4 t = *reinterpret_cast<const int4*>(tij + i);
+      const float4 zj = *reinterpret_cast<const float4*>(zj_row + c);
+      const float4 pj = *reinterpret_cast<const float4*>(pj_row + c);
+      float4 z1, e1, p1, w1;
+      cell_math(z.x, e.x, p.x, (float)(now - t.x), cnt * zj.x, p_pre, pj.x, k,
+                z1.x, e1.x, p1.x, w1.x);
+      cell_math(z.y, e.y, p.y, (float)(now - t.y), cnt * zj.y, p_pre, pj.y, k,
+                z1.y, e1.y, p1.y, w1.y);
+      cell_math(z.z, e.z, p.z, (float)(now - t.z), cnt * zj.z, p_pre, pj.z, k,
+                z1.z, e1.z, p1.z, w1.z);
+      cell_math(z.w, e.w, p.w, (float)(now - t.w), cnt * zj.w, p_pre, pj.w, k,
+                z1.w, e1.w, p1.w, w1.w);
+      *reinterpret_cast<float4*>(zij + i) = z1;
+      *reinterpret_cast<float4*>(eij + i) = e1;
+      *reinterpret_cast<float4*>(pij + i) = p1;
+      *reinterpret_cast<float4*>(wij + i) = w1;
+      *reinterpret_cast<int4*>(tij + i) = make_int4(now, now, now, now);
+      if (wrow_out != nullptr) *reinterpret_cast<float4*>(wrow_out + c) = w1;
+    }
+  } else {
+    for (int c = lane; c < g.C; c += 32) {
+      const long long i = base + col_off(g, c);
+      const float dt = (float)(now - tij[i]);
+      float z1, e1, p1, w1;
+      cell_math(zij[i], eij[i], pij[i], dt, cnt * zj_row[c], p_pre, pj_row[c],
+                k, z1, e1, p1, w1);
+      zij[i] = z1;
+      eij[i] = e1;
+      pij[i] = p1;
+      wij[i] = w1;
+      tij[i] = now;
+      if (wrow_out != nullptr) wrow_out[c] = w1;
+    }
   }
 }
 
 // One warp per worklist slot (row_walk). Valid rows are unique network-wide,
-// so no two warps ever write the same row.
+// so no two warps ever write the same row. Slot s belongs to HCU s / A: its
+// zj / pj are that HCU's (H, C) j-vector rows, read in place.
+template <bool kVec>
 __global__ void __launch_bounds__(32 * kRowWarps)
 fused_row_kernel(float* __restrict__ zij, float* __restrict__ eij,
                  float* __restrict__ pij, float* __restrict__ wij,
@@ -92,31 +179,38 @@ fused_row_kernel(float* __restrict__ zij, float* __restrict__ eij,
                  const float* __restrict__ zi_new,
                  const float* __restrict__ ei_new,
                  const float* __restrict__ pi_new, float* __restrict__ wrow,
-                 int W, int C, long long HR, Coeffs k) {
+                 int W, int A, long long HR, Tiling g, Coeffs k) {
   const int slot = blockIdx.x * kRowWarps + threadIdx.y;
   if (slot >= W) return;
   const int lane = threadIdx.x;
-  const long long e_off = (long long)slot * C;
-  const int r = rows[slot];
-  if (r < 0 || r >= HR) {  // sentinel slot: no plane write, zero weight row
-    for (int c = lane; c < C; c += 32) wrow[e_off + c] = 0.0f;
+  float* out = wrow + (long long)slot * g.C;
+  const int gr = rows[slot];
+  if (gr < 0 || gr >= HR) {  // sentinel slot: no plane write, zero weight row
+    if constexpr (kVec) {
+      for (int c = 4 * lane; c < g.C; c += 128)
+        *reinterpret_cast<float4*>(out + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      for (int c = lane; c < g.C; c += 32) out[c] = 0.0f;
+    }
     return;
   }
   const int now = *now_p;
-  row_walk(zij, eij, pij, wij, tij, (long long)r * C, zj + e_off, pj + e_off,
-           counts[slot], p_i[slot], now, C, lane, k, wrow + e_off);
+  const long long hj = (long long)(slot / A) * g.C;
+  row_walk<kVec>(zij, eij, pij, wij, tij, g, row_off(g, gr / g.R, gr % g.R),
+                 zj + hj, pj + hj, counts[slot], p_i[slot], now, lane, k, out);
   if (lane == 0) {
-    zi[r] = zi_new[slot];
-    ei[r] = ei_new[slot];
-    pi[r] = pi_new[slot];
-    ti[r] = now;
+    zi[gr] = zi_new[slot];
+    ei[gr] = ei_new[slot];
+    pi[gr] = pi_new[slot];
+    ti[gr] = now;
   }
 }
 
 // The unfused worklist row update: entries are compacted valid-first and
 // entry i is live when i < *nv_p and its row is in range. Live entries'
 // rows are unique (deduplicated), so warps never share a row; the rest
-// write nothing.
+// write nothing. zj / pj are the caller's per-entry (W, C) rows.
+template <bool kVec>
 __global__ void __launch_bounds__(32 * kRowWarps)
 worklist_row_kernel(float* __restrict__ zij, float* __restrict__ eij,
                     float* __restrict__ pij, float* __restrict__ wij,
@@ -126,43 +220,54 @@ worklist_row_kernel(float* __restrict__ zij, float* __restrict__ eij,
                     const float* __restrict__ counts,
                     const float* __restrict__ zj,
                     const float* __restrict__ p_i,
-                    const float* __restrict__ pj, int W, int C, long long HR,
-                    Coeffs k) {
+                    const float* __restrict__ pj, int W, long long HR,
+                    Tiling g, Coeffs k) {
   const int slot = blockIdx.x * kRowWarps + threadIdx.y;
   if (slot >= W || slot >= *nv_p) return;
-  const int r = rows[slot];
-  if (r < 0 || r >= HR) return;
-  const long long e_off = (long long)slot * C;
-  row_walk(zij, eij, pij, wij, tij, (long long)r * C, zj + e_off, pj + e_off,
-           counts[slot], p_i[slot], *now_p, C, threadIdx.x, k, nullptr);
+  const int gr = rows[slot];
+  if (gr < 0 || gr >= HR) return;
+  const long long e_off = (long long)slot * g.C;
+  row_walk<kVec>(zij, eij, pij, wij, tij, g, row_off(g, gr / g.R, gr % g.R),
+                 zj + e_off, pj + e_off, counts[slot], p_i[slot], *now_p,
+                 threadIdx.x, k, nullptr);
 }
 
-// Grid (row blocks, fired entries): each thread rewrites one cell of the
-// entry's fired column, (h*R + r)*C + j. Fired HCUs are unique within a
-// batch, so entries never share a cell. The cells of one column sit C*4
-// bytes apart, so each access costs a 32-byte sector for 4 useful bytes.
+// Grid (row blocks, fired entries). Entry e rewrites column j of HCU h, one
+// row a thread, the lanes of a warp on neighbouring rows, so a warp reads
+// runs of consecutive cells of one tile column (xr cells xc*4 bytes apart in
+// each xr*xc*4-byte tile; flat: single cells C*4 bytes apart). The entry's
+// i-vector traces zi, ei, pi, ti (contiguous at h*R + r) are decayed to
+// `now` here, as decay_zep does (dz = Z_i(now), p_pre = P_i(now)), and
+// p_post = pj[h, j] is read by index; a thread's eight loads are issued
+// before its arithmetic. Fired HCUs are unique within a batch, so entries
+// never share a cell; padding entries (h == n_hcu) return at once.
 __global__ void __launch_bounds__(kColThreads)
 fused_col_kernel(float* __restrict__ zij, float* __restrict__ eij,
                  float* __restrict__ pij, float* __restrict__ wij,
-                 int* __restrict__ tij, const int* __restrict__ h_idx,
-                 const int* __restrict__ j_idx, const int* __restrict__ now_p,
-                 const float* __restrict__ zi_t,
-                 const float* __restrict__ p_i,
-                 const float* __restrict__ pj_sc, int R, int C, int n_hcu,
-                 Coeffs k) {
+                 int* __restrict__ tij, const float* __restrict__ zi,
+                 const float* __restrict__ ei, const float* __restrict__ pi,
+                 const int* __restrict__ ti, const float* __restrict__ pj,
+                 const int* __restrict__ h_idx, const int* __restrict__ j_idx,
+                 const int* __restrict__ now_p, int n_hcu, Tiling g,
+                 Coeffs kij, Coeffs ki) {
   const int e = blockIdx.y;
   const int h = h_idx[e];
   const int j = j_idx[e];
-  if (h < 0 || h >= n_hcu || j < 0 || j >= C) return;  // padding entry
+  if (h < 0 || h >= n_hcu || j < 0 || j >= g.C) return;  // padding entry
   const int r = blockIdx.x * kColThreads + threadIdx.x;
-  if (r >= R) return;
+  if (r >= g.R) return;
   const int now = *now_p;
-  const long long i = ((long long)h * R + r) * C + j;
-  const long long v = (long long)e * R + r;
-  const float dt = (float)(now - tij[i]);
-  float z1, e1, p1, w1;
-  cell_math(zij[i], eij[i], pij[i], dt, zi_t[v], p_i[v], pj_sc[e], k, z1, e1,
-            p1, w1);
+  const long long i = row_off(g, h, r) + col_off(g, j);
+  const long long v = (long long)h * g.R + r;
+  const float z = zij[i], ez = eij[i], pz = pij[i];
+  const int t = tij[i];
+  const float zv = zi[v], ev = ei[v], pv = pi[v];
+  const int tv = ti[v];
+  const float p_post = pj[(long long)h * g.C + j];
+  float zi_t, p_i, z1, e1, p1, w1;
+  zp_decay(zv, ev, pv, (float)(now - tv), ki, zi_t, p_i);
+  cell_math(z, ez, pz, (float)(now - t), zi_t, p_i, p_post, kij, z1, e1, p1,
+            w1);
   zij[i] = z1;
   eij[i] = e1;
   pij[i] = p1;
@@ -238,45 +343,58 @@ extern "C" int bcpnn_fused_row_update(
     float* ei, float* pi, int* ti, const int* rows, const int* now,
     const float* counts, const float* zj, const float* p_i, const float* pj,
     const float* zi_new, const float* ei_new, const float* pi_new,
-    float* wrow, int W, int C, long long HR, float inv_tau_z,
-    float inv_tau_e, float inv_tau_p, float c_ze, float c_ep, float c_zp,
-    float eps, float eps2, void* stream) {
+    float* wrow, int W, int A, long long HR, int R, int C, int xr, int xc,
+    int Tr, int Tc, int vec, float inv_tau_z, float inv_tau_e,
+    float inv_tau_p, float c_ze, float c_ep, float c_zp, float eps,
+    float eps2, void* stream) {
   const Coeffs k{inv_tau_z, inv_tau_e, inv_tau_p, c_ze, c_ep, c_zp, eps, eps2};
+  const Tiling g{R, C, xr, xc, Tr, Tc};
   const dim3 block(32, kRowWarps);
   const dim3 grid((W + kRowWarps - 1) / kRowWarps);
-  fused_row_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = vec ? fused_row_kernel<true> : fused_row_kernel<false>;
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       zij, eij, pij, wij, tij, zi, ei, pi, ti, rows, now, counts, zj, p_i, pj,
-      zi_new, ei_new, pi_new, wrow, W, C, HR, k);
+      zi_new, ei_new, pi_new, wrow, W, A, HR, g, k);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int bcpnn_worklist_row_update(
     float* zij, float* eij, float* pij, float* wij, int* tij,
     const int* rows, const int* nv, const int* now, const float* counts,
-    const float* zj, const float* p_i, const float* pj, int W, int C,
-    long long HR, float inv_tau_z, float inv_tau_e, float inv_tau_p,
-    float c_ze, float c_ep, float c_zp, float eps, float eps2, void* stream) {
+    const float* zj, const float* p_i, const float* pj, int W, long long HR,
+    int R, int C, int xr, int xc, int Tr, int Tc, int vec, float inv_tau_z,
+    float inv_tau_e, float inv_tau_p, float c_ze, float c_ep, float c_zp,
+    float eps, float eps2, void* stream) {
   const Coeffs k{inv_tau_z, inv_tau_e, inv_tau_p, c_ze, c_ep, c_zp, eps, eps2};
+  const Tiling g{R, C, xr, xc, Tr, Tc};
   const dim3 block(32, kRowWarps);
   const dim3 grid((W + kRowWarps - 1) / kRowWarps);
-  worklist_row_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      zij, eij, pij, wij, tij, rows, nv, now, counts, zj, p_i, pj, W, C, HR,
+  auto kernel = vec ? worklist_row_kernel<true> : worklist_row_kernel<false>;
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      zij, eij, pij, wij, tij, rows, nv, now, counts, zj, p_i, pj, W, HR, g,
       k);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int bcpnn_fused_col_update(
-    float* zij, float* eij, float* pij, float* wij, int* tij,
-    const int* h_idx, const int* j_idx, const int* now, const float* zi_t,
-    const float* p_i, const float* pj_sc, int K, int R, int C, int n_hcu,
-    float inv_tau_z, float inv_tau_e, float inv_tau_p, float c_ze, float c_ep,
-    float c_zp, float eps, float eps2, void* stream) {
-  const Coeffs k{inv_tau_z, inv_tau_e, inv_tau_p, c_ze, c_ep, c_zp, eps, eps2};
+    float* zij, float* eij, float* pij, float* wij, int* tij, const float* zi,
+    const float* ei, const float* pi, const int* ti, const float* pj,
+    const int* h_idx, const int* j_idx, const int* now, int K, int n_hcu,
+    int R, int C, int xr, int xc, int Tr, int Tc, float inv_tau_z,
+    float inv_tau_e, float inv_tau_p, float c_ze, float c_ep, float c_zp,
+    float eps, float eps2, float i_inv_tau_z, float i_inv_tau_e,
+    float i_inv_tau_p, float i_c_ze, float i_c_ep, float i_c_zp,
+    void* stream) {
+  const Coeffs kij{inv_tau_z, inv_tau_e, inv_tau_p, c_ze, c_ep, c_zp, eps,
+                   eps2};
+  const Coeffs ki{i_inv_tau_z, i_inv_tau_e, i_inv_tau_p, i_c_ze, i_c_ep,
+                  i_c_zp, 0.0f, 0.0f};
+  const Tiling g{R, C, xr, xc, Tr, Tc};
   const dim3 grid((R + kColThreads - 1) / kColThreads, K);
   fused_col_kernel<<<grid, kColThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      zij, eij, pij, wij, tij, h_idx, j_idx, now, zi_t, p_i, pj_sc, R, C,
-      n_hcu, k);
+      zij, eij, pij, wij, tij, zi, ei, pi, ti, pj, h_idx, j_idx, now, n_hcu,
+      g, kij, ki);
   return static_cast<int>(cudaGetLastError());
 }
 

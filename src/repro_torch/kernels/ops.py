@@ -7,7 +7,8 @@ go to the CUDA kernel, which launches or raises. There is no switch and no
 fallback from the kernel to the plain version.
 
 Unlike the JAX wrappers, these pad nothing and copy no plane: the
-worklist kernels take the unpadded (H*R, C) planes and rewrite them in
+worklist kernels take the planes as they are stored (flat (H*R, C) or
+column-blocked tiles, `repro_torch.core.layout`) and rewrite them in
 place, and the block kernels take the gathered blocks as they are (no
 junk rows, no (R/128, 128) reshape). The block entries are batched: one
 call covers every HCU (`row_update`) or every fired-batch entry
@@ -34,51 +35,59 @@ def _dispatch(plain, kernel, device):
 
 def fused_row_update(zij, eij, pij, wij, tij, zi, ei, pi, ti, rows, now,
                      counts, zj, p_i, pj, zi_new, ei_new, pi_new,
-                     coeffs: DecayCoeffs, eps: float):
-    """Fused worklist row phase over the flat planes.
+                     coeffs: DecayCoeffs, eps: float, layout=None):
+    """Fused worklist row phase over the stored planes.
 
-    rows (W,) int32: SLOT-ordered flat row indices, with the H*R sentinel
-    on padding and duplicate slots. counts / p_i / zi_new / ei_new / pi_new
-    (W,), zj / pj (W, C): per-slot operands. ``now`` is an int or an int32
-    tensor. The five ij planes and four i-vectors are rewritten in place;
-    returns the (W, C) weight rows (zero on sentinel slots) for the WTA.
+    rows (W,) int32: SLOT-ordered global flat row indices, A = W / H slots
+    per HCU, with the H*R sentinel on padding and duplicate slots.
+    counts / p_i / zi_new / ei_new / pi_new (W,): per-slot operands; zj / pj
+    (H, C): the j-vectors, read at HCU slot // A. ``now`` is an int or an
+    int32 tensor; ``layout`` the planes' stored layout (None: flat). The
+    five ij planes and four i-vectors are rewritten in place; returns the
+    (W, C) weight rows (zero on sentinel slots) for the WTA.
     """
     fn = _dispatch(BU.fused_row_update_plain, BU.fused_row_update_kernel,
                    zij.device)
     return fn(zij, eij, pij, wij, tij, zi, ei, pi, ti, rows,
               _now(now, zij.device), counts, zj, p_i, pj, zi_new, ei_new,
-              pi_new, coeffs, eps)
+              pi_new, coeffs, eps, layout=layout)
 
 
-def fused_col_update(zij, eij, pij, wij, tij, h_idx, j_idx, now, zi_t, p_i,
-                     pj_sc, coeffs: DecayCoeffs, eps: float, n_hcu: int,
-                     rows: int):
-    """Fused worklist column phase over the flat planes.
+def fused_col_update(zij, eij, pij, wij, tij, zi, ei, pi, ti, pj, h_idx,
+                     j_idx, now, coeffs: DecayCoeffs, coeffs_i: DecayCoeffs,
+                     eps: float, n_hcu: int, rows: int, layout=None):
+    """Fused worklist column phase over the stored planes.
 
     h_idx / j_idx (K,) int32: the compacted fired batch of
-    `network.select_fired` (padding entries carry h_idx == n_hcu). zi_t /
-    p_i (K, rows): per-entry presynaptic traces at ``now``; pj_sc (K,):
-    per-entry postsynaptic P. The five ij planes are rewritten in place.
+    `network.select_fired` (padding entries carry h_idx == n_hcu). zi / ei
+    / pi / ti (H*rows,): the i-vectors as they stand, brought to ``now``
+    inside (``coeffs_i``, not written back); pj (H, C): the j-vector P.
+    The five ij planes (stored in ``layout``, None: flat) are rewritten in
+    place.
     """
     fn = _dispatch(BU.fused_col_update_plain, BU.fused_col_update_kernel,
                    zij.device)
-    fn(zij, eij, pij, wij, tij, h_idx, j_idx, _now(now, zij.device), zi_t,
-       p_i, pj_sc, coeffs, eps, n_hcu, rows)
+    fn(zij, eij, pij, wij, tij, zi, ei, pi, ti, pj, h_idx, j_idx,
+       _now(now, zij.device), coeffs, coeffs_i, eps, n_hcu, rows,
+       layout=layout)
 
 
 def worklist_row_update(zij, eij, pij, wij, tij, rows, nv, now, counts, zj,
-                        p_i, pj, coeffs: DecayCoeffs, eps: float):
-    """Unfused worklist row update over the flat planes.
+                        p_i, pj, coeffs: DecayCoeffs, eps: float,
+                        layout=None):
+    """Unfused worklist row update over the stored planes.
 
-    rows (W,) int32: flat row indices compacted valid-first; entries at or
-    past ``nv`` (an int32 tensor) are ignored whatever they hold.
+    rows (W,) int32: global flat row indices compacted valid-first; entries
+    at or past ``nv`` (an int32 tensor) are ignored whatever they hold.
     counts / p_i (W,), zj / pj (W, C): per-entry operands. The five ij
-    planes are rewritten in place; the i-vectors are the caller's.
+    planes (stored in ``layout``, None: flat) are rewritten in place; the
+    i-vectors are the caller's.
     """
     fn = _dispatch(BU.worklist_row_update_plain,
                    BU.worklist_row_update_kernel, zij.device)
     fn(zij, eij, pij, wij, tij, rows, nv.reshape(1).to(torch.int32),
-       _now(now, zij.device), counts, zj, p_i, pj, coeffs, eps)
+       _now(now, zij.device), counts, zj, p_i, pj, coeffs, eps,
+       layout=layout)
 
 
 def row_update(zij, eij, pij, tij, now, counts, zj, p_i, pj,

@@ -5,7 +5,9 @@
   each fixture was captured with: `head_lazy_worklist.npz` (worklist=True,
   in all four fused / fused_cols combinations), `head_lazy_dense.npz`
   (worklist=False), `head_eager.npz` (eager=True) and
-  `head_host_lazy.npz` (`run_host`, worklist=False).
+  `head_host_lazy.npz` (`run_host`, worklist=False). The lazy ones also
+  with the planes stored column-blocked, tiles (8, 4) and (7, 5), compared
+  after unpacking, as tests/test_engine_fixtures.py holds the JAX package.
 * Live, at rodent width: the JAX `Simulator.run` (kernel="ref") in a child
   process against the port on the CPU with the same flags (the default
   fused worklist backend, the unfused one, the dense one), 60 ticks from
@@ -69,10 +71,10 @@ def _flush_denormal():
     torch.set_flush_denormal(False)
 
 
-def assert_contract(fired, state, ref, name):
+def assert_contract(fired, state, ref, name, layout=None):
     np.testing.assert_array_equal(np.asarray(fired), ref["fired"],
                                   err_msg=f"{name}: fired history")
-    got = convert.state_to_numpy(state)
+    got = convert.state_to_numpy(state, layout)
     for k in INT_LEAVES:
         np.testing.assert_array_equal(got[k], ref[k], err_msg=f"{name}: {k}")
     for k in ref:
@@ -136,9 +138,65 @@ def test_worklist_fused_and_unfused_match_fixture(kw):
     assert_contract(fired, state, d, f"lazy_worklist {kw}")
 
 
+BLOCKED_CASES = [*(("lazy_worklist", kw) for kw in WORKLIST_COMBOS),
+                 ("lazy_dense", {})]
+blocked_id = lambda v: (combo_id(v) if isinstance(v, dict) and v else
+                        f"{v[0]}x{v[1]}" if isinstance(v, tuple) else str(v))
+
+
+def replay_blocked(name, kw, tile, device):
+    """A lazy fixture with the planes stored in tile ``tile``: the
+    contract after unpacking, and every pad cell still `store`'s zero."""
+    lay = L.BlockedLayout(64, 16, *tile)
+    d, fired, state = replay_fixture(name, device, layout=lay, **kw)
+    assert tuple(state.hcus.zij.shape) == lay.plane_shape(4)
+    assert_contract(fired, state, d, f"{name} {kw} blocked{tile}", lay)
+    pad = torch.ones(lay.plane_shape(4), dtype=torch.bool).reshape(-1)
+    pad[lay.row_index(torch.arange(4 * 64)).reshape(-1)] = False
+    for f in ("zij", "eij", "pij", "wij", "tij"):
+        assert not getattr(state.hcus, f).cpu().reshape(-1)[pad].any(), f
+
+
+@pytest.mark.parametrize("tile", [(8, 4), (7, 5)], ids=blocked_id)
+@pytest.mark.parametrize("name,kw", BLOCKED_CASES, ids=blocked_id)
+def test_fixture_trajectory_under_blocked_layout(name, kw, tile):
+    """The layout is storage order, not semantics: head_lazy_worklist (all
+    four combinations) and head_lazy_dense reproduce with the planes
+    stored column-blocked, including the non-dividing tile (7, 5)."""
+    replay_blocked(name, kw, tile, "cpu")
+
+
+def test_blocked_simulator_views_are_flat_copies():
+    """Under a blocked layout `hcus()` and `flushed()` give the flat-order
+    values of the flat run, bit for bit; `hcus()` is a copy."""
+    p = tiny_scale(4, 64, 16)
+    ext = ext_tensor(p, 20, lam=3.0, seed=2)
+    flat = Simulator(p, key=0, device="cpu", worklist=True)
+    blocked = Simulator(p, key=0, device="cpu", worklist=True,
+                        layout="blocked")
+    assert blocked.layout == L.BlockedLayout(64, 16, 8, 4)
+    np.testing.assert_array_equal(flat.run(ext).numpy(),
+                                  blocked.run(ext).numpy())
+    for a, b in ((flat.hcus(), blocked.hcus()),
+                 (flat.flushed(), blocked.flushed())):
+        for f in a._fields:
+            np.testing.assert_array_equal(getattr(a, f).numpy(),
+                                          getattr(b, f).numpy(), err_msg=f)
+    assert blocked.hcus().zij.data_ptr() != blocked.state.hcus.zij.data_ptr()
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(8, 4), (7, 5)], ids=blocked_id)
+@pytest.mark.parametrize("name,kw", BLOCKED_CASES, ids=blocked_id)
+def test_fixture_trajectory_under_blocked_layout_on_cuda(name, kw, tile):
+    """The blocked fixture replays through the CUDA kernels."""
+    _cuda()
+    replay_blocked(name, kw, tile, "cuda")
 
 
 @pytest.mark.cuda
@@ -155,8 +213,8 @@ def test_fixture_trajectory_on_cuda(name, kw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kw", [{}, dict(fused=False, fused_cols=False),
-                                dict(worklist=False)],
-                         ids=["fused", "unfused", "dense"])
+                                dict(worklist=False), dict(layout="blocked")],
+                         ids=["fused", "unfused", "dense", "fused_blocked"])
 def test_tick_never_synchronises_on_cuda(kw):
     """No operation inside a tick waits for the device (what a CUDA-graph
     capture of a chunk of ticks needs): sync-debug mode "error" raises on

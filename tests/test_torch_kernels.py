@@ -7,9 +7,14 @@
   vmapped over HCUs / fired entries as `repro.core.hcu.row_updates` and
   `repro.core.engine.column_updates_batched` call them), and against the
   JAX cell oracle (`bcpnn_ref.row_update_ref` / `col_update_ref`) at
-  rodent width (R=1200, C=70). The JAX side runs in a child process.
+  rodent width (R=1200, C=70). The JAX side runs in a child process. The
+  port's fused kernels read the (H, C) j-vectors and the raw i-vectors
+  themselves; the JAX side gathers them per slot / entry and applies the
+  column prologue's i-vector decay (`hcu.ivec_decay`) before its kernel.
+  The three worklist entries also run on planes stored column-blocked
+  ((8, 4) and (7, 5) tiles), compared after unpacking.
 * On a CUDA device (skipped without one), each CUDA kernel against its
-  plain version on the same inputs.
+  plain version on the same inputs, flat and blocked.
 * The device decides the path: a non-CPU tensor never reaches the plain
   version.
 
@@ -52,7 +57,8 @@ def _planes(rs, n, R, C):
 
 def row_inputs(seed, n, R, C, A):
     """Slot-ordered worklist: per HCU a few unique rows (HCU n-1 holds the
-    plane's last row), the rest sentinel slots (H*R)."""
+    plane's last row), the rest sentinel slots (H*R); zj / pj are the
+    (n, C) j-vectors, slot s reading HCU s // A's."""
     rs = np.random.default_rng(seed)
     HR, W = n * R, n * A
     rows = np.full(W, HR, np.int32)
@@ -67,9 +73,9 @@ def row_inputs(seed, n, R, C, A):
     d.update(
         rows=rows,
         counts=np.where(valid, rs.integers(1, 4, W), 0).astype(np.float32),
-        zj=rs.uniform(0, 2, (W, C)).astype(np.float32),
+        zj=rs.uniform(0, 2, (n, C)).astype(np.float32),
         p_i=rs.uniform(1e-4, 0.1, W).astype(np.float32),
-        pj=rs.uniform(1e-4, 0.1, (W, C)).astype(np.float32),
+        pj=rs.uniform(1e-4, 0.1, (n, C)).astype(np.float32),
         zi_new=rs.uniform(0, 3, W).astype(np.float32),
         ei_new=rs.uniform(0, 0.5, W).astype(np.float32),
         pi_new=rs.uniform(1e-4, 0.1, W).astype(np.float32))
@@ -78,14 +84,13 @@ def row_inputs(seed, n, R, C, A):
 
 def col_inputs(seed, n, R, C, K=4):
     """Fired batch: HCU n-1 at the last column, HCU 0 at column 3, then
-    padding entries (h == n)."""
+    padding entries (h == n); the i-vectors of the planes (ti up to NOW)
+    and an (n, C) pj."""
     rs = np.random.default_rng(seed)
     d = _planes(rs, n, R, C)
     d.update(h_idx=np.array([n - 1, 0] + [n] * (K - 2), np.int32),
              j_idx=np.array([C - 1, 3] + [0] * (K - 2), np.int32),
-             zi_t=rs.uniform(0, 3, (K, R)).astype(np.float32),
-             p_i=rs.uniform(1e-4, 0.1, (K, R)).astype(np.float32),
-             pj_sc=rs.uniform(1e-4, 0.1, K).astype(np.float32))
+             pj=rs.uniform(1e-4, 0.1, (n, C)).astype(np.float32))
     return d
 
 
@@ -146,10 +151,11 @@ def prefixed(d, pre):
 
 
 _JAX_BODY = """
-from repro.core.hcu import coeffs_ij
+from repro.core.hcu import coeffs_ij, ivec_decay
 from repro.core.params import BCPNNParams
 from repro.kernels import ops, bcpnn_ref
-k, eps = coeffs_ij(BCPNNParams()), BCPNNParams().eps
+P = BCPNNParams()
+k, eps = coeffs_ij(P), P.eps
 NOW = jnp.int32(IN["now"])
 ROW = ("zij", "eij", "pij", "wij", "tij", "zi", "ei", "pi", "ti")
 COL = ("zij", "eij", "pij", "wij", "tij")
@@ -158,20 +164,35 @@ def arg(pre):
     return {n[len(pre) + 1:]: jnp.asarray(v) for n, v in IN.items()
             if n.startswith(pre + "_")}
 
+def per_slot(a):
+    # the (n, C) j-vectors gathered per slot, slot s of HCU s // A
+    h_of = np.arange(a["rows"].shape[0]) // (a["rows"].shape[0] // a["zj"].shape[0])
+    return a["zj"][h_of], a["pj"][h_of]
+
+def prologue(a, n_hcu, R):
+    # the column prologue: the entries' i-vectors decayed to NOW, pj by entry
+    safe_h = jnp.minimum(a["h_idx"], n_hcu - 1)
+    ivr = lambda v: jnp.asarray(v).reshape(n_hcu, R)[safe_h]
+    zep = ivec_decay(ivr(a["zi"]), ivr(a["ei"]), ivr(a["pi"]), ivr(a["ti"]),
+                     NOW, P)
+    return zep.z, zep.p, jnp.asarray(a["pj"])[safe_h, a["j_idx"]]
+
 # Pallas kernels in interpret mode at the small size
 a = arg("srow")
+zj_s, pj_s = per_slot(a)
 flats, ivecs, wrow = ops.fused_row_update(
     *(a[f] for f in ROW), rows=a["rows"], now=NOW, counts=a["counts"],
-    zj=a["zj"], p_i=a["p_i"], pj=a["pj"], zi_new=a["zi_new"],
+    zj=zj_s, p_i=a["p_i"], pj=pj_s, zi_new=a["zi_new"],
     ei_new=a["ei_new"], pi_new=a["pi_new"], coeffs=k, eps=eps,
     backend="pallas_interpret")
 for f, v in zip(ROW, (*flats, *ivecs)):
     OUT[f"srow_{f}"] = v
 OUT["srow_wrow"] = wrow
 a = arg("scol")
+zi_t, p_i, pj_sc = prologue(a, int(IN["small_n"]), int(IN["small_R"]))
 flats = ops.fused_col_update(
     *(a[f] for f in COL), h_idx=a["h_idx"], j_idx=a["j_idx"], now=NOW,
-    zi_t=a["zi_t"], p_i=a["p_i"], pj_sc=a["pj_sc"], coeffs=k, eps=eps,
+    zi_t=zi_t, p_i=p_i, pj_sc=pj_sc, coeffs=k, eps=eps,
     n_hcu=int(IN["small_n"]), rows=int(IN["small_R"]),
     backend="pallas_interpret")
 for f, v in zip(COL, flats):
@@ -179,6 +200,7 @@ for f, v in zip(COL, flats):
 
 # the cell oracle at rodent width, one (1, C) row / (R,) column per entry
 a = {n: np.array(v) for n, v in arg("rrow").items()}
+a["zj"], a["pj"] = per_slot(a)
 HR, C = a["zij"].shape
 sel = np.nonzero(a["rows"] < HR)[0]
 r = a["rows"][sel]
@@ -199,6 +221,8 @@ OUT["rrow_wrow"] = wrow
 
 a = {n: np.array(v) for n, v in arg("rcol").items()}
 n_hcu, R = int(IN["rodent_n"]), int(IN["rodent_R"])
+a["zi_t"], a["p_i"], a["pj_sc"] = (np.asarray(v) for v in
+                                   prologue(a, n_hcu, R))
 sel = np.nonzero(a["h_idx"] < n_hcu)[0]
 ri = a["h_idx"][sel, None] * R + np.arange(R)[None, :]
 ci = np.broadcast_to(a["j_idx"][sel, None], ri.shape)
@@ -278,40 +302,55 @@ def _t(d, device="cpu"):
     return {k: torch.from_numpy(np.array(v)).to(device) for k, v in d.items()}
 
 
-def run_row(d, device="cpu", fn=None):
+def _stored(d, device, lay):
+    """The inputs as tensors, the planes stored in ``lay`` (None: flat)."""
     a = _t(d, device)
+    if lay is not None:
+        a.update({f: lay.store(a[f]) for f in COL_PLANES})
+    return a
+
+
+def _loaded(a, lay, names):
+    """The outputs in flat order (planes unpacked from ``lay``)."""
+    return {f: lay.load(a[f]) if lay is not None and f in COL_PLANES
+            else a[f] for f in names}
+
+
+def run_row(d, device="cpu", fn=None, lay=None):
+    a = _stored(d, device, lay)
     p = BCPNNParams()
     wrow = (fn or ops.fused_row_update)(
         *(a[f] for f in ROW_PLANES), a["rows"], torch.tensor(NOW, dtype=torch.int32, device=device),
         a["counts"], a["zj"], a["p_i"], a["pj"], a["zi_new"], a["ei_new"],
-        a["pi_new"], TH.coeffs_ij(p), p.eps)
-    out = {f: a[f] for f in ROW_PLANES}
+        a["pi_new"], TH.coeffs_ij(p), p.eps, layout=lay)
+    out = _loaded(a, lay, ROW_PLANES)
     out["wrow"] = wrow
     return out
 
 
-def run_col(d, n, R, device="cpu", fn=None):
-    a = _t(d, device)
+def run_col(d, n, R, device="cpu", fn=None, lay=None):
+    a = _stored(d, device, lay)
     p = BCPNNParams()
     (fn or ops.fused_col_update)(
-        *(a[f] for f in COL_PLANES), a["h_idx"], a["j_idx"],
-        torch.tensor(NOW, dtype=torch.int32, device=device), a["zi_t"],
-        a["p_i"], a["pj_sc"], TH.coeffs_ij(p), p.eps, n, R)
-    return {f: a[f] for f in COL_PLANES}
+        *(a[f] for f in ROW_PLANES), a["pj"], a["h_idx"], a["j_idx"],
+        torch.tensor(NOW, dtype=torch.int32, device=device),
+        TH.coeffs_ij(p), TH.coeffs_i(p), p.eps, n, R, layout=lay)
+    return _loaded(a, lay, ROW_PLANES)
 
 
-def run_worklist(d, device="cpu", fn=None):
-    a = _t(d, device)
+def run_worklist(d, device="cpu", fn=None, lay=None):
+    a = _stored(d, device, lay)
     p = BCPNNParams()
     now = torch.tensor(NOW, dtype=torch.int32, device=device)
     if fn is None:
         ops.worklist_row_update(*(a[f] for f in COL_PLANES), a["rows"],
                                 a["nv"], now, a["counts"], a["zj"], a["p_i"],
-                                a["pj"], TH.coeffs_ij(p), p.eps)
+                                a["pj"], TH.coeffs_ij(p), p.eps, layout=lay)
     else:
         fn(*(a[f] for f in COL_PLANES), a["rows"], a["nv"], now.reshape(1),
-           a["counts"], a["zj"], a["p_i"], a["pj"], TH.coeffs_ij(p), p.eps)
-    return {f: a[f] for f in COL_PLANES}
+           a["counts"], a["zj"], a["p_i"], a["pj"], TH.coeffs_ij(p), p.eps,
+           layout=lay)
+    return _loaded(a, lay, COL_PLANES)
 
 
 def run_rowblock(d, device="cpu", fn=None):
@@ -374,9 +413,42 @@ def test_fused_col_update_matches_jax(cases, case):
     dims = SMALL if case == "scol" else RODENT
     got = run_col(ins[case], dims["n"], dims["R"])
     assert_outputs(got, {f: ref[f"{case}_{f}"] for f in COL_PLANES}, COL_PLANES)
-    # only the valid entries' columns changed
+    # only the valid entries' columns changed, and no i-vector
     changed = (got["tij"].numpy() != ins[case]["tij"]).any(axis=0)
     assert changed.sum() <= 2
+    for f in ("zi", "ei", "pi", "ti"):
+        np.testing.assert_array_equal(got[f].numpy(), ins[case][f], err_msg=f)
+
+
+TILES = [(8, 4), (7, 5)]
+tile_id = lambda t: f"{t[0]}x{t[1]}"
+
+
+def _blocked(dims, tile):
+    from repro_torch.core.layout import BlockedLayout
+    return BlockedLayout(dims["R"], dims["C"], *tile)
+
+
+@pytest.mark.parametrize("tile", TILES, ids=tile_id)
+@pytest.mark.parametrize("case", ["srow", "rrow", "scol", "rcol", "swl",
+                                  "rwl"])
+def test_worklist_updates_on_blocked_planes_match_jax(cases, case, tile):
+    """The three worklist entries on planes stored column-blocked, against
+    the same JAX results as their flat runs: the layout is storage order,
+    not math. Pad cells stay as `store` left them (zero)."""
+    ins, ref = cases
+    dims = SMALL if case[0] == "s" else RODENT
+    lay = _blocked(dims, tile)
+    if case[1:] == "row":
+        got = run_row(ins[case], lay=lay)
+        names = (*ROW_PLANES, "wrow")
+    elif case[1:] == "col":
+        got = run_col(ins[case], dims["n"], dims["R"], lay=lay)
+        names = COL_PLANES
+    else:
+        got = run_worklist(ins[case], lay=lay)
+        names = COL_PLANES
+    assert_outputs(got, {f: ref[f"{case}_{f}"] for f in names}, names)
 
 
 @pytest.mark.parametrize("case", ["swl", "rwl", "srb", "rrb", "scb", "rcb"])
@@ -431,6 +503,34 @@ def test_cuda_col_kernel_matches_plain(dims):
     want = run_col(d, dims["n"], dims["R"], dev, BU.fused_col_update_plain)
     assert_outputs(got, {k: v.cpu().numpy() for k, v in want.items()},
                    COL_PLANES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", TILES + [(8, 128), (32, 4)], ids=tile_id)
+@pytest.mark.parametrize("dims", [SMALL, RODENT], ids=["small", "rodent"])
+@pytest.mark.parametrize("kind", ["fused_row_update", "fused_col_update",
+                                  "worklist_row_update"])
+def test_cuda_worklist_kernels_on_blocked_planes_match_plain(kind, dims,
+                                                             tile):
+    """Each worklist kernel against its plain version on planes stored
+    column-blocked (compared after unpacking), on tiles of whole 4-cell
+    segments ((8, 4), (32, 4), (8, 128) at C=16) and a scalar one (7, 5)."""
+    dev = _cuda()
+    n, R, C, A = (dims[k] for k in ("n", "R", "C", "A"))
+    lay = _blocked(dims, tile)
+    d, run, names = {
+        "fused_row_update": (row_inputs(20, n, R, C, A), run_row,
+                             (*ROW_PLANES, "wrow")),
+        "fused_col_update": (col_inputs(21, n, R, C), lambda *a, **k:
+                             run_col(a[0], n, R, *a[1:], **k), ROW_PLANES),
+        "worklist_row_update": (worklist_inputs(22, n, R, C, A),
+                                run_worklist, COL_PLANES)}[kind]
+    before = BU.launches[kind]
+    got = run(d, dev, getattr(BU, f"{kind}_kernel"), lay=lay)
+    torch.cuda.synchronize()
+    assert BU.launches[kind] == before + 1
+    want = run(d, dev, getattr(BU, f"{kind}_plain"), lay=lay)
+    assert_outputs(got, {k: v.cpu().numpy() for k, v in want.items()}, names)
 
 
 @pytest.mark.cuda

@@ -12,6 +12,7 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.core import (DenseBackend, Simulator, WorklistBackend,
                               select_backend)
+from repro_torch.core.layout import BlockedLayout, FlatLayout
 from repro_torch.core.params import human_scale, rodent_scale
 from repro_torch.core.params import test_scale as tiny_scale
 from repro_torch.launch.serve import ServingEngine
@@ -94,7 +95,7 @@ def test_dense_param_count_matches_the_analytic_count(arch):
     assert cfg.param_count() == cfg.n_layers * per_layer + head + D
 
 
-@pytest.mark.parametrize("kw", [dict(merged=True), dict(layout="blocked")],
+@pytest.mark.parametrize("kw", [dict(merged=True)],
                          ids=lambda kw: next(iter(kw)))
 def test_unported_backends_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -103,8 +104,19 @@ def test_unported_backends_raise(kw):
         Simulator(tiny_scale(), device="cpu", **kw)
 
 
+@pytest.mark.parametrize("spec", ["tiled", "blocked_gpu", 4])
+def test_unknown_layout_raises(spec):
+    """A layout spec that `layout.resolve_layout` does not know raises
+    ValueError, as in the JAX package."""
+    with pytest.raises(ValueError, match="unknown plane layout"):
+        select_backend(tiny_scale(), layout=spec)
+    with pytest.raises(ValueError, match="unknown plane layout"):
+        Simulator(tiny_scale(), device="cpu", layout=spec)
+
+
 SMALL = tiny_scale()                   # R*C = 1024: the dense backend
 LARGE = rodent_scale(4)                # R*C = 84000: the worklist backend
+TILE84 = BlockedLayout(LARGE.rows, LARGE.cols, 8, 4)
 
 
 @pytest.mark.parametrize("p,kw,want", [
@@ -120,13 +132,28 @@ LARGE = rodent_scale(4)                # R*C = 84000: the worklist backend
      WorklistBackend(fused=False, fused_cols=False)),
     (LARGE, dict(), WorklistBackend(fused=True, fused_cols=True)),
     (human_scale(4), dict(), WorklistBackend(fused=True, fused_cols=True)),
+    (LARGE, dict(layout="blocked"), WorklistBackend(layout=TILE84)),
+    (LARGE, dict(layout=TILE84, fused=False),
+     WorklistBackend(fused=False, layout=TILE84)),
+    (LARGE, dict(layout="blocked_tpu"), WorklistBackend(
+        layout=BlockedLayout(LARGE.rows, LARGE.cols, 8, 128))),
+    (LARGE, dict(layout="flat"), WorklistBackend()),
+    (LARGE, dict(layout=FlatLayout()), WorklistBackend()),
+    (LARGE, dict(layout="blocked", worklist=False),
+     DenseBackend(mode="lazy", layout=TILE84)),
+    (SMALL, dict(layout="blocked", eager=True), DenseBackend(
+        mode="eager", layout=BlockedLayout(SMALL.rows, SMALL.cols, 8, 4))),
 ], ids=["eager", "eager_large", "worklist", "fused", "fused_cols",
         "small_default", "small_worklist", "small_unfused", "rodent_default",
-        "human_default"])
+        "human_default", "layout", "layout_instance", "layout_tpu",
+        "layout_flat", "layout_flat_instance", "layout_dense",
+        "layout_eager"])
 def test_select_backend(p, kw, want):
     """The JAX package's selection: eager is dense; otherwise the size
     guard R*C > 65536 takes the worklist backend unless `worklist=`
-    forces either; `fused` / `fused_cols` pick its kernels."""
+    forces either; `fused` / `fused_cols` pick its kernels; the layout
+    spec is resolved once (`"blocked"`: the (8, 4) tile) and becomes the
+    backend's field."""
     got = select_backend(p, **kw)
     assert type(got) is type(want) and got == want
     assert Simulator(p, n_hcu=2, device="cpu", **kw).backend == want
