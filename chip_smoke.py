@@ -30,26 +30,46 @@ toolkit. Phases, in order; any failure exits non-zero:
                combinations, head_lazy_dense with worklist=False, head_eager
                with eager=True, head_host_lazy through `run_host`), and the
                five lazy ones again with the planes stored in tiles (8, 4)
-               and (7, 5): the fired history and integer leaves exactly,
-               float leaves to the CPU tests' tolerances, after unpacking.
+               and (7, 5). Each runs on the per-tick driver
+               (`Simulator.tick`, or `run_host`), then on the CUDA-graph
+               driver (`Simulator.run`) at chunks of 128 (one 40-tick graph)
+               and 7 (graphs of 7 and 5 ticks): every run holds the fired
+               history and integer leaves exactly and float leaves to the
+               CPU tests' tolerances, after unpacking, and every graph run
+               equals the per-tick run bit for bit.
   5. paths   — `Simulator(human_scale(n_hcu=256))`: R=10000, C=100, fanout
                100, 256 HCUs (5.1 GB of ij planes), Poisson input (lambda 4,
-               width 8, seed 0). The main path (the fused worklist backend):
-               16 warm-up ticks, then 200 timed ticks; the same backend with
-               the planes stored in phase 3's tile (fused_blocked), the
-               unfused worklist backend (fused=False, fused_cols=False) and
-               the dense backend (worklist=False): 16 warm-up and 100 timed
-               ticks each; fused_blocked's fired history must equal the
-               fused path's over the same ticks. The
-               kernels' launch counters are set to 0 just before the timed
-               ticks, which run under CUDA sync-debug mode "error", so a host
-               synchronisation inside the tick fails the run. Each kernel of
-               a path must have launched once per tick and no other kernel at
-               all; planes finite; fired rate within 0.5x-2x of out_rate.
-               Each path gets a 10-tick profile. Then the eager golden model
-               (eager=True) runs 20 ticks beside the main path's first 20
-               from the same key and input: the fired histories must be
-               equal.
+               width 8, seed 0). The main path (the fused worklist backend,
+               200 timed ticks), the same backend with the planes stored in
+               phase 3's tile (fused_blocked), the unfused worklist backend
+               (fused=False, fused_cols=False), the dense backend
+               (worklist=False), 100 timed ticks each, and the eager golden
+               model (eager=True), 20. Each path first runs through the
+               CUDA-graph driver (`Simulator.run`, chunk 128): warm-up ticks
+               capture every chunk length the timed ticks replay, one call a
+               capture (each first call timed, each graph's nodes counted),
+               and the wrappers' launch counters must show one launch of
+               each kernel of the path per captured tick; two timed runs
+               back to back replay only (host µs/tick, the device's span by
+               CUDA events and the SM clock sampled by nvidia-smi), the
+               counters required to stay 0; a device-only trace of one more
+               run of as many ticks (also under sync-debug "error") counts
+               each kernel's executions (each kernel of the path once per
+               replayed tick, no other one) and gives the device's busy
+               time, and from the same trace the idle share of the
+               profiled run (1 - the union of the device's operations over
+               the trace's span; the profiler stretches the run, so an
+               unprofiled replay's idle share is not measured). Then a
+               fresh Simulator
+               runs the per-tick `Simulator.tick` loop: 4 warm-up and 20
+               timed ticks, each kernel of the path launched once a tick and
+               no other, whose fired history must equal the graphs' over the
+               same ticks, and a 10-tick per-phase profile (the graphs have
+               no phase ranges). All timed runs run under CUDA sync-debug
+               mode "error"; planes finite; fired rate within 0.5x-2x of
+               out_rate. Peak GiB with and without graphs. fused_blocked's
+               and eager's fired histories must equal the fused path's over
+               the same ticks.
   6. flash   — the flash-attention kernels against their plain version on
                the card, on the model's layout: q (B, Sq, H, hd) and the KV
                cache (B, slots, Kv, hd) read in place. The qwen2-1.5b
@@ -109,10 +129,12 @@ SECTOR = 32                   # bytes per DRAM/L2 sector
 OPS_PER_CELL = 33             # float32 ops of cell_math, transcendentals as one
 NOW = 100
 N_TIMED = 20
-WARM_TICKS, TIMED_TICKS = 16, 200
-OTHER_TICKS = 100         # timed ticks of the unfused and dense paths
+TIMED_TICKS = 200         # timed ticks of the fused path
+OTHER_TICKS = 100         # timed ticks of the fused_blocked, unfused and dense paths
 EAGER_TICKS = 20
 PROFILE_TICKS = 10
+PER_TICK_WARM, PER_TICK_TICKS = 4, 20   # the per-tick driver beside the graphs
+GRAPH_REPEATS = 2         # timed runs through the graphs, back to back
 # float tolerances of the CPU contract (tests/test_torch_engine.py)
 FIXTURE_TOL = {"hcus_wij": (4e-6, 4e-6), "hcus_h": (4e-6, 1e-4)}
 FIXTURE_DEFAULT_TOL = (4e-6, 4e-7)
@@ -491,9 +513,40 @@ FIXTURES += [(name, dict(kw, layout=tile), host)
              for tile in ((8, 4), (7, 5)) for name, kw, host in FIXTURES[:5]]
 
 
+# the chunk lengths phase 4 replays each fixture at through the graph
+# driver: the default (one 40-tick graph) and 7, which leaves a remainder
+# (graphs of 7 and 5 ticks)
+FIXTURE_CHUNKS = (128, 7)
+
+
+def fixture_gaps(tag, fired, got, d):
+    """A run against a fixture's contract: the fired history and integer
+    leaves exactly, float leaves to the CPU tests' tolerances. Returns the
+    float gaps by leaf."""
+    if not np.array_equal(fired, d["fired"]):
+        fail(f"fixture {tag}: fired history differs")
+    for k in INT_LEAVES:
+        if not np.array_equal(got[k], d[k]):
+            fail(f"fixture {tag}: {k} differs")
+    gaps = {}
+    for k in d:
+        if k.startswith("hcus_") and k not in INT_LEAVES:
+            rtol, atol = FIXTURE_TOL.get(k, FIXTURE_DEFAULT_TOL)
+            diff = np.abs(got[k].astype(np.float64) - d[k])
+            if not (diff <= atol + rtol * np.abs(d[k])).all():
+                fail(f"fixture {tag}: {k} max abs gap {diff.max()}")
+            gaps[k] = float(diff.max())
+    return gaps
+
+
 def phase_fixtures(dev):
-    """Phase 4: the head fixtures through the kernels on the card; blocked
-    runs compared after unpacking (`convert.state_to_numpy`)."""
+    """Phase 4: the head fixtures through the kernels on the card. Each
+    runs on the per-tick driver (`Simulator.tick`, or `run_host` where the
+    fixture was captured with it), then on the CUDA-graph driver
+    (`Simulator.run`) at each chunk of FIXTURE_CHUNKS: every run is held
+    to the fixture's contract, and every graph run to the per-tick run's
+    fired history and state bit for bit. Blocked runs are compared after
+    unpacking (`convert.state_to_numpy`)."""
     import torch
     from repro_torch import convert
     from repro_torch.core import Simulator
@@ -504,37 +557,38 @@ def phase_fixtures(dev):
         d = dict(np.load(ROOT / "tests" / "fixtures" / f"head_{name}.npz"))
         tile = kw.get("layout")
         kw = dict(kw, layout=tile and BlockedLayout(p.rows, p.cols, *tile))
+        tag = (f"{name} {json.dumps(dict(kw, layout=tile))}"
+               f"{' run_host' if host else ''}")
         sim = Simulator(p, key=0, device=dev, **kw)
         for k, v in convert.conn_to_numpy(sim.conn).items():
             if not np.array_equal(v, d[k]):
                 fail(f"fixture {name}: {k} differs")
+        ext = torch.from_numpy(d["ext"])
         if host:
-            ext = torch.from_numpy(d["ext"])
             fired = sim.run_host(lambda t: ext[t - 1], ext.shape[0])
         else:
-            fired = sim.run(d["ext"])
-        fired = fired.cpu().numpy()
+            fired = torch.stack([sim.tick(e) for e in ext.to(dev)])
+        want = fired.cpu().numpy(), convert.state_to_numpy(sim.state,
+                                                           sim.layout)
+        gaps = fixture_gaps(f"{tag} per-tick", *want, d)
+        graphs = []
+        for chunk in FIXTURE_CHUNKS:
+            sim = Simulator(p, key=0, device=dev, chunk=chunk, **kw)
+            fired = sim.run(ext.to(dev)).cpu().numpy()
+            got = convert.state_to_numpy(sim.state, sim.layout)
+            fixture_gaps(f"{tag} graphs chunk {chunk}", fired, got, d)
+            if not np.array_equal(fired, want[0]) or any(
+                    not np.array_equal(got[k], want[1][k]) for k in got):
+                fail(f"fixture {tag}: the graphs at chunk {chunk} differ "
+                     f"from the per-tick driver")
+            graphs.append(f"chunk {chunk}: graphs of "
+                          f"{list(sim.graphs.captured)} ticks")
         torch.cuda.synchronize()
-        tag = (f"{name} {json.dumps(dict(kw, layout=tile))}"
-               f"{' run_host' if host else ''}")
-        if not np.array_equal(fired, d["fired"]):
-            fail(f"fixture {tag}: fired history differs")
-        got = convert.state_to_numpy(sim.state, sim.layout)
-        for k in INT_LEAVES:
-            if not np.array_equal(got[k], d[k]):
-                fail(f"fixture {tag}: {k} differs")
-        gaps = {}
-        for k in d:
-            if k.startswith("hcus_") and k not in INT_LEAVES:
-                rtol, atol = FIXTURE_TOL.get(k, FIXTURE_DEFAULT_TOL)
-                diff = np.abs(got[k].astype(np.float64) - d[k])
-                if not (diff <= atol + rtol * np.abs(d[k])).all():
-                    fail(f"fixture {tag}: {k} max abs gap {diff.max()}")
-                gaps[k] = float(diff.max())
         print(f"fixture {tag} on the card: fired history exact "
-              f"({int((fired >= 0).sum())} spikes), integer leaves exact, "
+              f"({int((want[0] >= 0).sum())} spikes), integer leaves exact, "
               f"largest float gap {max(gaps.values()):.3g} "
-              f"({max(gaps, key=gaps.get)})")
+              f"({max(gaps, key=gaps.get)}); the graph driver bit for bit "
+              f"the per-tick one ({'; '.join(graphs)})")
 
 
 def reset_launches():
@@ -563,6 +617,7 @@ PATHS = {
     "unfused": (dict(fused=False, fused_cols=False), OTHER_TICKS,
                 ("worklist_row_update", "col_update")),
     "dense": (dict(worklist=False), OTHER_TICKS, ("row_update", "col_update")),
+    "eager": (dict(eager=True), EAGER_TICKS, ()),
 }
 # the path whose launch count each kernel reports
 REPORT_PATH = {"fused_row_update": "fused", "fused_col_update": "fused",
@@ -579,7 +634,10 @@ def check_state(name, sim, fired, p, ticks, t_end):
     import torch
     st = sim.state
     for f in ("zij", "eij", "pij", "wij", "zi", "ei", "pi", "zj", "ej", "pj", "h"):
-        if not bool(torch.isfinite(getattr(st.hcus, f)).all()):
+        # min and max propagate NaN; no plane-sized temporary (isfinite of
+        # a plane would hold its abs copy and three bool planes, 1.6 GiB)
+        if not bool(torch.isfinite(torch.stack(torch.aminmax(
+                getattr(st.hcus, f)))).all()):
             fail(f"{name} path: non-finite values in {f}")
     if int(st.t) != t_end:
         fail(f"{name} path: t = {int(st.t)}")
@@ -591,106 +649,294 @@ def check_state(name, sim, fired, p, ticks, t_end):
     return rate
 
 
-def run_path(name, p, ext, kw):
-    """One human-width path: warm-up, timed ticks under sync-debug "error"
-    with the launch counters from 0, the checks, a 10-tick profile.
-    Returns (launch counts, µs/tick, profile summary, fired history)."""
+class SMClocks:
+    """The card's SM clock (MHz) sampled every 20 ms by `nvidia-smi -lms`
+    in a child process for the length of a ``with`` block; ``median``
+    and ``span`` (min, max) afterwards, None where no sample came."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+             "-lms", "20"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+            text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate()
+        mhz = sorted(int(v) for v in out.split() if v.isdigit())
+        self.median = statistics.median(mhz) if mhz else None
+        self.span = (mhz[0], mhz[-1]) if mhz else None
+
+    def __str__(self):
+        return ("SM clock not sampled" if self.median is None else
+                f"SM clock median {self.median} MHz ({self.span[0]}-"
+                f"{self.span[1]})")
+
+
+def check_counts(what, counts, want):
+    """Each wrapper's launch count must equal ``want`` (kernel -> count;
+    every other kernel 0)."""
+    for k, c in counts.items():
+        if c != want.get(k, 0):
+            fail(f"{what}: {k} counted {c} launches, expected {want.get(k, 0)}")
+
+
+def timed_ticks(name, driver, run, want):
+    """``run()`` under sync-debug "error" with the launch counters from 0,
+    then each wrapper's count must equal ``want`` (`check_counts`). Prints
+    when the host returned from ``run()``, the device's span (CUDA events
+    around it) and the SM clock. Returns (result, host seconds to the end
+    of the device's work, device span in ms, counts)."""
     import torch
-    from repro_torch.core import Simulator
+    reset_launches()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with SMClocks() as clocks:
+        # any operation that waits for the device inside the ticks raises
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        a.record()
+        out = run()
+        b.record()
+        enqueued = time.perf_counter() - t0
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    span = a.elapsed_time(b)
+    print(f"{name} path ({driver}): the host returned after {enqueued:.4f} s "
+          f"of {wall:.4f} s; device span {span:.2f} ms; {clocks}")
+    counts = read_launches()
+    check_counts(f"{name} path ({driver})", counts, want)
+    return out, wall, span, counts
+
+
+def graph_nodes(graph):
+    """The node count of a captured CUDA graph (the driver keeps each with
+    keep_graph=True), by the driver API's `cuGraphGetNodes`."""
+    import ctypes
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphGetNodes.restype = ctypes.c_int
+    count = ctypes.c_size_t(0)
+    rc = lib.cuGraphGetNodes(graph.raw_cuda_graph(), None, ctypes.byref(count))
+    if rc:
+        fail(f"cuGraphGetNodes failed (CUresult {rc})")
+    return count.value
+
+
+def run_path(name, p, ext, kw):
+    """One human-width path, first through the CUDA-graph driver, then
+    through the per-tick `Simulator.tick` loop on a fresh Simulator.
+
+    Graphs: ``ticks`` warm-up ticks, one call per chunk, capture every
+    chunk length the timed runs replay; the wrappers' launch counters,
+    from 0, must show one launch of each kernel of the path per captured
+    tick, and one more for the scratch tick before the backend's first
+    capture (a capture records launches, a replay makes none on the
+    host). Each capture's first call is timed and its graph's nodes
+    counted. GRAPH_REPEATS timed runs of ``ticks`` ticks then replay only, under
+    sync-debug "error", the counters from 0 and required to stay 0, each
+    with its device span and SM clock; a device trace of one more run of
+    ``ticks`` ticks counts each kernel's executions (once per replayed
+    tick, `profile_replay`) and gives the busy time and the idle share.
+    Per-tick: PER_TICK_WARM ticks, then PER_TICK_TICKS timed under
+    sync-debug "error", each kernel launched once a tick, its fired
+    history equal to the graphs' over the same ticks, then the per-phase
+    profile (`profile_ticks`). Peak GiB of each driver from a fresh
+    Simulator. Returns (summary, the warm-up fired history)."""
+    import torch
+    from repro_torch.core import Simulator, network
     _, ticks, expect = PATHS[name]
+    P = PROFILE_TICKS
+    assert ext.shape[0] >= (GRAPH_REPEATS + 2) * ticks
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sim = Simulator(p, key=0, **kw)              # the default device: CUDA
     torch.cuda.synchronize()
     print(f"{name} path: {type(sim.backend).__name__}{tuple(sim.backend)}, "
           f"init {time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    sim.run(ext[:WARM_TICKS])
-    torch.cuda.synchronize()
     reset_launches()
-    # any operation that waits for the device inside the ticks raises here
-    torch.cuda.set_sync_debug_mode("error")
-    t0 = time.perf_counter()
-    fired = sim.run(ext[WARM_TICKS:WARM_TICKS + ticks])
-    torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_launches()
-    for k, c in counts.items():
-        want = ticks if k in expect else 0
-        if c != want:
-            fail(f"{name} path: {k} launched {c} times in {ticks} ticks, "
-                 f"expected {want}")
-    rate = check_state(name, sim, fired, p, ticks, WARM_TICKS + ticks)
-    us = wall / ticks * 1e6
-    print(f"{name} path: {ticks} ticks in {wall:.3f} s = {us:.1f} us/tick, "
-          f"fired rate {rate:.4f} per HCU per tick, drops {sim.drops()}, "
-          f"launches {json.dumps(counts)}")
-    prof = profile_ticks(name, sim, ext[:PROFILE_TICKS], expect)
-    fired = fired.cpu()
+    scratch = len(network.scratch_ticked)
+    warm, first_s = [], {}
+    for lo in range(0, ticks, sim.chunk):
+        known = set(sim.graphs.captured)
+        t0 = time.perf_counter()
+        warm.append(sim.run(ext[lo:min(lo + sim.chunk, ticks)]))
+        torch.cuda.synchronize()
+        for L in set(sim.graphs.captured) - known:
+            first_s[L] = time.perf_counter() - t0
+    warm = torch.cat(warm)
+    peak_warm = torch.cuda.max_memory_allocated() / 2**30
+    at_capture = read_launches()
+    # a backend's first capture in the process runs its scratch tick first
+    scratch = len(network.scratch_ticked) - scratch
+    check_counts(f"{name} path (graphs, warm-up)", at_capture,
+                 {k: sum(first_s) + scratch for k in expect})
+    nodes = {L: graph_nodes(g) for L, g in sim.graphs.captured.items()}
+    print(f"{name} path: {ticks} warm-up ticks through the graphs, chunk "
+          f"{sim.chunk}; launches counted at capture {json.dumps(at_capture)} "
+          f"({sum(first_s)} captured ticks, {scratch} scratch tick)")
+    us, spans = [], []
+    for rep in range(GRAPH_REPEATS):
+        lo = (rep + 1) * ticks
+        fired, wall, span, counts = timed_ticks(
+            name, "graphs", lambda: sim.run(ext[lo:lo + ticks]), {})
+        rate = check_state(name, sim, fired, p, ticks, lo + ticks)
+        us.append(wall / ticks * 1e6)
+        spans.append(span / ticks * 1e3)
+        print(f"{name} path [graphs, run {rep + 1}]: {ticks} ticks in "
+              f"{wall:.4f} s = {us[-1]:.1f} us/tick (device span "
+              f"{spans[-1]:.1f} us/tick), fired rate {rate:.4f} per HCU per "
+              f"tick, drops {sim.drops()}")
+    lo += ticks
+    replay = profile_replay(name, sim, ext[lo:lo + ticks], expect, spans[-1])
+    if set(sim.graphs.captured) != set(first_s):
+        fail(f"{name} path: the timed ticks captured a graph")
+    # the first call of a chunk length captures, instantiates and replays
+    # it once (a backend's first capture in the process also runs the
+    # scratch tick); less one replay at the timed rate is the capture's
+    captures = [{"ticks": L, "first_call_s": s_, "nodes": nodes[L],
+                 "capture_s": s_ - L * spans[-1] / 1e6}
+                for L, s_ in first_s.items()]
+    for c in captures:
+        print(f"  graph of {c['ticks']} ticks: first call {c['first_call_s']:.3f} s "
+              f"(capture, instantiation, one replay), less one replay at the "
+              f"timed rate {c['capture_s']:.3f} s; {c['nodes']} nodes "
+              f"({c['nodes'] / c['ticks']:.1f} a tick)")
+    peak_graphs = torch.cuda.max_memory_allocated() / 2**30
+    warm = warm.cpu()
     del sim
     torch.cuda.empty_cache()
-    return counts, us, prof, fired
+    torch.cuda.reset_peak_memory_stats()
 
-
-def phase_eager(p, ext):
-    """The eager golden model beside the main path's first ticks: equal
-    fired histories."""
-    import torch
-    from repro_torch.core import Simulator
-    lazy = Simulator(p, key=0)
-    f_lazy = lazy.run(ext[:EAGER_TICKS]).cpu()
-    del lazy
+    sim = Simulator(p, key=0, **kw)
+    hist = [sim.tick(e) for e in ext[:PER_TICK_WARM]]
+    lo, hi = PER_TICK_WARM, PER_TICK_WARM + PER_TICK_TICKS
+    more, wall_t, _, counts_t = timed_ticks(
+        name, "per-tick", lambda: [sim.tick(e) for e in ext[lo:hi]],
+        {k: PER_TICK_TICKS for k in expect})
+    m = min(hi, warm.shape[0])
+    per_tick = torch.stack(hist + more)[:m].cpu()
+    if not torch.equal(per_tick, warm[:m]):
+        fail(f"{name} path: the per-tick driver's fired history differs from "
+             f"the graphs' in {int((per_tick != warm[:m]).sum())} places")
+    us_t = wall_t / PER_TICK_TICKS * 1e6
+    peak_tick = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{name} path [per-tick]: {PER_TICK_TICKS} ticks in {wall_t:.4f} s "
+          f"= {us_t:.1f} us/tick; fired history equals the graphs' over "
+          f"ticks 1-{m}; peak GiB allocated {peak_graphs:.3f} with graphs "
+          f"({peak_warm:.3f} by the end of the warm-up), {peak_tick:.3f} "
+          f"per-tick")
+    prof = profile_ticks(name, sim, ext[hi:hi + P], expect)
+    del sim
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()     # the peak below is eager's own
-    eager = Simulator(p, key=0, eager=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    f_eager = eager.run(ext[:EAGER_TICKS])
-    torch.cuda.synchronize()
-    us = (time.perf_counter() - t0) / EAGER_TICKS * 1e6
-    print(f"eager path: {EAGER_TICKS} ticks at {us:.1f} us/tick, peak "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
-    rate = check_state("eager", eager, f_eager, p, EAGER_TICKS, EAGER_TICKS)
-    if not torch.equal(f_eager.cpu(), f_lazy):
-        diff = int((f_eager.cpu() != f_lazy).sum())
-        fail(f"eager path: fired history differs from the lazy path's in "
-             f"{diff} places")
-    print(f"eager path: fired history equals the lazy path's over "
-          f"{EAGER_TICKS} ticks ({int((f_lazy >= 0).sum())} spikes, rate "
-          f"{rate:.4f})")
-    prof = profile_ticks("eager", eager, ext[:PROFILE_TICKS], ())
-    del eager
-    torch.cuda.empty_cache()
-    return us, prof
+    return {"us_per_tick_graphs": us, "device_span_us_per_tick": spans,
+            "us_per_tick_per_tick": us_t, "captures": captures,
+            "launches_at_capture": at_capture,
+            "launches_per_tick_loop": counts_t, "replay": replay,
+            "peak_gib_graphs": peak_graphs, "peak_gib_graphs_warm_up": peak_warm,
+            "peak_gib_per_tick": peak_tick, "per_tick_profile": prof}, warm
 
 
 def phase_paths(report, tile):
-    """Phase 5: every path at human width through the kernels; the
-    fused_blocked path with the planes stored in ``tile``, its fired
-    history held against the flat fused path's over the same ticks."""
+    """Phase 5: every path at human width through the kernels (`run_path`);
+    the fused_blocked path with the planes stored in ``tile``, its fired
+    history held against the flat fused path's over the same ticks, and
+    the eager golden model's against the fused path's."""
     import torch
     from repro_torch.core.layout import BlockedLayout
     from repro_torch.core.params import human_scale
     p = human_scale(n_hcu=256)
-    ext = torch.from_numpy(ext_tensor(p, WARM_TICKS + TIMED_TICKS)).cuda()
+    T = (GRAPH_REPEATS + 2) * TIMED_TICKS
+    t0 = time.perf_counter()
+    ext = torch.from_numpy(ext_tensor(p, T)).cuda()
     print(f"paths: human_scale(n_hcu=256) R={p.rows} C={p.cols} "
-          f"fanout={p.fanout} A={p.active_queue}; fused_blocked tile {tile}")
+          f"fanout={p.fanout} A={p.active_queue}; fused_blocked tile {tile}; "
+          f"{T} ticks of input staged in {time.perf_counter() - t0:.2f} s")
     flags = {name: kw for name, (kw, _, _) in PATHS.items()}
     flags["fused_blocked"] = dict(layout=BlockedLayout(p.rows, p.cols, *tile))
     runs = {name: run_path(name, p, ext, flags[name]) for name in PATHS}
-    a, b = runs["fused"][3], runs["fused_blocked"][3]
-    if not torch.equal(b, a[:b.shape[0]]):
-        fail(f"fused_blocked path: fired history differs from the fused "
-             f"path's in {int((b != a[:b.shape[0]]).sum())} places")
-    print(f"fused_blocked path: fired history equals the fused path's over "
-          f"{b.shape[0]} ticks ({int((b >= 0).sum())} spikes)")
+    fused = runs["fused"][1]
+    for name in ("fused_blocked", "eager"):
+        b = runs[name][1]
+        if not torch.equal(b, fused[:b.shape[0]]):
+            fail(f"{name} path: fired history differs from the fused "
+                 f"path's in {int((b != fused[:b.shape[0]]).sum())} places")
+        print(f"{name} path: fired history equals the fused path's over "
+              f"{b.shape[0]} ticks ({int((b >= 0).sum())} spikes)")
     for e in report:
-        e["launches"] = runs[REPORT_PATH[e["name"]]][0][e["name"]]
-    eager_us, eager_prof = phase_eager(p, ext)
-    summary = {name: {"us_per_tick": us, **prof}
-               for name, (_, us, prof, _) in runs.items()}
-    summary["eager"] = {"us_per_tick": eager_us, **eager_prof}
+        e["launches"] = runs[REPORT_PATH[e["name"]]][0]["replay"][
+            "executions"][e["name"]]
+    summary = {name: r[0] for name, r in runs.items()}
     print("paths summary:", json.dumps(summary))
+
+
+def profile_replay(name, sim, ext, expect, unprofiled):
+    """The graph driver over len(ext) more ticks (replays only, under
+    sync-debug "error") in torch.profiler with device activity only. From
+    that one trace: each hand-written kernel's executions, which must be
+    one a tick for each kernel of ``expect`` and none for any other; the
+    device's busy time (its operations' durations summed) and operations
+    a tick; the span
+    from the first operation's start to the last one's end; and the idle
+    share, 1 - (the union of the operations' intervals) / span. The
+    profiler stretches the run it records (its span is printed beside the
+    ``unprofiled`` one, µs/tick by CUDA events), so this is the idle share
+    of the profiled run; an unprofiled replay's is not measured. Returns a
+    summary."""
+    import collections
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n = len(ext)
+    t0 = time.perf_counter()
+    with SMClocks() as clocks, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sim.run(ext)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    evs = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not evs:
+        fail(f"{name} replay profile: no device activity in the trace")
+    ran = {k: sum(tag in e[2] for e in evs) for k, tag in KERNEL_TAGS.items()}
+    for k, c in ran.items():
+        if c != (n if k in expect else 0):
+            fail(f"{name} replay profile: {k}'s kernel ran {c} times in {n} "
+                 f"replayed ticks, expected {n if k in expect else 0}")
+    union, end = 0.0, evs[0][0]
+    for s_, e_, _ in evs:
+        union += max(0.0, e_ - max(s_, end))
+        end = max(end, e_)
+    span = max(e[1] for e in evs) - evs[0][0]
+    by = collections.defaultdict(lambda: [0.0, 0])
+    for s_, e_, nm in evs:
+        by[nm][0] += e_ - s_
+        by[nm][1] += 1
+    busy = sum(v[0] for v in by.values()) / n
+    ours = {k: sum(v[0] for nm, v in by.items() if tag in nm) / n
+            for k, tag in KERNEL_TAGS.items() if k in expect}
+    idle = 1 - union / span
+    print(f"{name} replay profile over {n} ticks (replays only, device "
+          f"activity only, {time.perf_counter() - t0:.1f} s with the trace): "
+          f"kernels ran {json.dumps(ran)}; device busy {busy:.1f} us/tick in "
+          f"{len(evs) / n:.1f} device ops/tick; span {span / n:.1f} us/tick "
+          f"against {unprofiled:.1f} unprofiled; idle share of the profiled "
+          f"run {idle:.4f} (of an unprofiled replay: not measured); {clocks}"
+          + "".join(f"; {k} {v:.1f} us/tick" for k, v in ours.items()))
+    for nm, (t, c) in sorted(by.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"  device {t / n:9.1f} us/tick {c / n:6.1f}/tick  {nm[:80]}")
+    return {"executions": ran, "device_busy_us_per_tick": busy,
+            "device_ops_per_tick": len(evs) / n,
+            "profiled_span_us_per_tick": span / n,
+            "unprofiled_span_us_per_tick": unprofiled,
+            "idle_share_profiled_run": idle,
+            "kernel_us_per_tick": ours}
 
 
 # the phase functions of the tick, timed by name in the profile, and the
@@ -707,9 +953,11 @@ PHASES = (("repro_torch.core.engine", "worklist_lazy_rows",
 
 def profile_ticks(name, sim, ext, kernels):
     """Device time of a path by kernel and by tick phase over 10 more ticks
-    (torch.profiler; each phase function runs inside a `record_function`
-    range of its name for the length of the profile). Returns a summary;
-    prints "not measured" where the trace has no device time."""
+    of the per-tick driver (`Simulator.tick`: a graph replay runs no
+    Python, so it has no phase ranges); torch.profiler, each phase
+    function inside a `record_function` range of its name for the length
+    of the profile. Returns a summary; prints "not measured" where the
+    trace has no device time."""
     import importlib
     import torch
     from torch.autograd import DeviceType
@@ -729,7 +977,8 @@ def profile_ticks(name, sim, ext, kernels):
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            sim.run(ext)
+            for e in ext:
+                sim.tick(e)
             torch.cuda.synchronize()
     finally:
         for m, fn, orig in saved:
@@ -765,7 +1014,8 @@ def profile_ticks(name, sim, ext, kernels):
     host = sorted((e for e in avgs if e.device_type == DeviceType.CPU
                    and not is_phase(e)), key=lambda e: -e.self_cpu_time_total)
     host_total = sum(e.self_cpu_time_total for e in host) / n
-    print(f"{name} profile over {n} ticks: device busy {total / n:.1f} "
+    print(f"{name} profile over {n} ticks of the per-tick driver (the "
+          f"graphs have no phase ranges): device busy {total / n:.1f} "
           f"us/tick in {sum(r[2] for r in rows) / n:.0f} device ops/tick"
           + "".join(f"; {k} {v:.1f} us/tick" for k, v in ours.items())
           + "; phases (device us/tick of all their kernels) "

@@ -32,16 +32,18 @@ boolean-mask indexing): the current time stays a device tensor that the
 kernels read through a pointer, the column step runs every tick, its
 padding entries writing nothing, where the JAX package gates the pass with
 `lax.cond`, and JAX's drop-mode scatters are redirected in range
-(`hcu.put_drop`). A chunk of ticks can therefore later be captured in one
-CUDA graph. Only the host-loop driver (`Simulator.run_host`) reads the
-time back each tick, as the JAX one does.
+(`hcu.put_drop`). A chunk of ticks can therefore be captured in one
+CUDA graph, which is what `network.network_run` does on CUDA (one graph
+replay per chunk of ``chunk`` ticks, `network.ChunkGraphs`). Only the
+host-loop driver (`Simulator.run_host`) reads the time back each tick, as
+the JAX one does.
 
 `Simulator` is the user-facing facade. Its tensors live on ``device``:
 CUDA unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Protocol
 
 import torch
 
@@ -51,19 +53,9 @@ from repro_torch.core import network as N
 from repro_torch.core import reference
 from repro_torch.core import rng
 from repro_torch.core import worklist as WL
+from repro_torch.core.device import resolve_device
 from repro_torch.core.params import BCPNNParams
 from repro_torch.kernels import ops
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means CUDA, and raises where there is none: the port never
-    falls back to the CPU unless the caller asks for it."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                               "port on the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 # ---------------------------------------------------------------------------
@@ -226,8 +218,24 @@ def worklist_col_dispatch(fused_cols: bool, h_idx, j_idx, t,
 
 
 # ---------------------------------------------------------------------------
-# the two backends
+# the TickBackend protocol and its two implementations
 # ---------------------------------------------------------------------------
+
+class TickBackend(Protocol):
+    """A plane-update strategy pluggable into `tick`: hashable value
+    objects (NamedTuples), so the drivers can key their captured chunks on
+    them. `carry_in` / `carry_out` convert between the stored layout and
+    the one the backend threads through a chunk; `plane_update` runs the
+    row / WTA / column phases of one tick on the carry and returns
+    (state', fired, h_idx, j_idx, n_dropped)."""
+
+    def carry_in(self, state): ...
+
+    def carry_out(self, state): ...
+
+    def plane_update(self, state, rows, t, keys, p: BCPNNParams,
+                     cap: int): ...
+
 
 class DenseBackend(NamedTuple):
     """Plane updates of every HCU at once on the batched (H, R, C) view of
@@ -236,7 +244,7 @@ class DenseBackend(NamedTuple):
     mode: "lazy" (timestamped row and column updates: `hcu.hcu_tick_pre`
     and `column_updates_batched`) or "eager" (the dense golden model,
     `reference.eager_tick`). The JAX package's "merged" mode is not ported
-    (ROADMAP queue A item 6). layout: the planes' stored layout (None:
+    (ROADMAP queue A item 3). layout: the planes' stored layout (None:
     flat); a blocked one is converted to flat and back once per driver
     call (`carry_in` / `carry_out`, pure data movement), so the per-tick
     dense step is the flat one."""
@@ -264,7 +272,7 @@ class DenseBackend(NamedTuple):
         else:
             raise NotImplementedError(
                 f"dense mode {self.mode!r} is not ported to PyTorch yet "
-                "(merged mode: ROADMAP queue A item 6)")
+                "(merged mode: ROADMAP queue A item 3)")
         return (state._replace(hcus=L.flat_state(hb)), fired, h_idx, j_idx,
                 n_drop)
 
@@ -315,7 +323,7 @@ def select_backend(p: BCPNNParams, *, eager: bool = False,
     ports it."""
     if merged:
         raise NotImplementedError("merged mode is not ported to PyTorch yet "
-                                  "(ROADMAP queue A item 6)")
+                                  "(ROADMAP queue A item 3)")
     layout = L.resolve_layout(layout, p)
     if eager:
         return DenseBackend(mode="eager", layout=layout)
@@ -368,6 +376,7 @@ class Simulator:
 
         sim = Simulator(p, key=0)              # on CUDA
         fired = sim.run(ext)                   # (T, H) fired history
+        sim.reset()                            # a fresh state, same key
 
     ``device`` defaults to CUDA and raises without it; pass
     ``device="cpu"`` to run the plain PyTorch versions of the kernels on
@@ -379,13 +388,20 @@ class Simulator:
     every run; `hcus()` gives the batched (H, R, C) view in flat order and
     `flushed()` a fully current copy. The connectivity and the RNG stream
     are those of the JAX package's `Simulator` for the same key.
+
+    `run` takes ``chunk`` ticks at a time (default 128, as in the JAX
+    package): on CUDA one CUDA-graph replay a chunk, the graphs captured
+    on the held state at their first use and kept with it in ``graphs``
+    (`network.ChunkGraphs`, whose ``captured`` maps each chunk length to
+    its graph). `reset`, `tick` and `run_host` rebind the state and drop
+    them.
     """
 
     def __init__(self, p: BCPNNParams, key=0, *, n_hcu: int | None = None,
                  device=None, merged: bool = False, eager: bool = False,
                  worklist: bool | None = None, fused: bool | None = None,
                  fused_cols: bool | None = None, cap_fire: int | None = None,
-                 layout=None):
+                 chunk: int = 128, layout=None):
         self.device = resolve_device(device)
         # raises, before anything is allocated, for a mode not ported yet
         select_backend(p, eager=eager, merged=merged, worklist=worklist,
@@ -394,15 +410,11 @@ class Simulator:
         self.n_hcu = n_hcu or p.n_hcu
         self.merged, self.eager = merged, eager
         self.worklist, self.fused, self.fused_cols = worklist, fused, fused_cols
-        self.cap_fire = cap_fire
+        self.cap_fire, self.chunk = cap_fire, chunk
         # None (flat) or a BlockedLayout ("blocked" -> the (8, 4) tile)
         self.layout = L.resolve_layout(layout, p)
-        self._key = (rng.PRNGKey(key, self.device) if isinstance(key, int)
-                     else key.to(self.device))
-        self.conn = N.make_connectivity(p, rng.fold_in(self._key, 1),
-                                        self.n_hcu)
-        self.state = N.init_network(p, self._key, self.n_hcu,
-                                    layout=self.layout)
+        self.graphs = N.ChunkGraphs()
+        self.reset(key)
 
     def _kw(self):
         return dict(eager=self.eager, merged=self.merged,
@@ -417,17 +429,34 @@ class Simulator:
                               worklist=self.worklist, fused=self.fused,
                               fused_cols=self.fused_cols, layout=self.layout)
 
+    def reset(self, key=None) -> "Simulator":
+        """Re-init the network state (the same connectivity unless ``key``
+        is given, then the new key's connectivity too) and drop the
+        captured chunks. Returns self."""
+        self.state = None                # freed before the new one is made
+        self.graphs.clear()
+        if key is not None:
+            self._key = (rng.PRNGKey(key, self.device) if isinstance(key, int)
+                         else key.to(self.device))
+            self.conn = N.make_connectivity(
+                self.p, rng.fold_in(self._key, 1), self.n_hcu)
+        self.state = N.init_network(self.p, self._key, self.n_hcu,
+                                    layout=self.layout)
+        return self
+
     def tick(self, ext_rows):
         """One 1 ms tick; ext_rows (H, A_ext). Returns fired (H,)."""
         ext_rows = torch.as_tensor(ext_rows).to(self.device, torch.int32)
+        self.graphs.clear()
         self.state, fired = N.network_tick(self.state, self.conn, ext_rows,
                                            self.p, **self._kw())
         return fired
 
-    def run(self, ext, n_ticks: int | None = None):
+    def run(self, ext, n_ticks: int | None = None, chunk: int | None = None):
         """Run the ticks of `ext`: a staged (T, H, A_ext) array or tensor,
         an iterable of (H, A_ext) frames, or a callable ext_fn(t) (then
-        pass n_ticks). Returns the fired history (T, H) int32."""
+        pass n_ticks), ``chunk`` ticks at a time (default: the
+        Simulator's). Returns the fired history (T, H) int32."""
         if callable(ext):
             ext = N.stage_external(ext, n_ticks, t0=int(self.state.t),
                                    device=self.device)
@@ -436,28 +465,30 @@ class Simulator:
         if n_ticks is not None:
             ext = ext[:n_ticks]
         self.state, fired = N.network_run(self.state, self.conn, ext, self.p,
-                                          **self._kw())
+                                          chunk=chunk or self.chunk,
+                                          graphs=self.graphs, **self._kw())
         return fired
 
     def run_host(self, ext_fn, n_ticks: int):
         """Per-tick host-loop driver: ext_fn(t) gives tick t's (H, A_ext)
         input. Reads the time back to the host every tick, as the JAX
         package's host loop does. Returns the fired history (T, H)."""
+        self.graphs.clear()
         self.state, fired = N.run(self.state, self.conn, ext_fn, n_ticks,
                                   self.p, **self._kw())
         return fired
 
     def run_sharded(self, *args, **kwargs):
         raise NotImplementedError("the sharded runtime is not ported to "
-                                  "PyTorch yet (ROADMAP queue A item 11)")
+                                  "PyTorch yet (ROADMAP queue A item 7)")
 
     def save(self, *args, **kwargs):
         raise NotImplementedError("checkpoints are not ported to PyTorch yet "
-                                  "(ROADMAP queue A item 8)")
+                                  "(ROADMAP queue A item 4)")
 
     def load(self, *args, **kwargs):
         raise NotImplementedError("checkpoints are not ported to PyTorch yet "
-                                  "(ROADMAP queue A item 8)")
+                                  "(ROADMAP queue A item 4)")
 
     def drops(self) -> dict:
         """Cumulative spike-drop counters {'in', 'fire', 'route'} (reads

@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.core.params import BCPNNParams
 from repro_torch.core.traces import ZEP, bias, decay_zep, make_coeffs
 from repro_torch.core import layout as L
@@ -93,6 +94,28 @@ def coeffs_i(p: BCPNNParams):
 
 def coeffs_j(p: BCPNNParams):
     return make_coeffs(p.tau_zj, p.tau_e, p.tau_p)
+
+
+def init_hcu_state(p: BCPNNParams, dtype=torch.float32,
+                   device=None) -> HCUState:
+    """One HCU's initial (R, C) state: ij planes (R, C), i-vectors (R,),
+    j-vectors and support (C,). The initial weight is computed in
+    ``dtype`` with the scalars rounded to it first, as the JAX package's
+    `init_hcu_state` computes it. ``device`` defaults to CUDA (raises
+    without it; pass "cpu" for the CPU)."""
+    dev = resolve_device(device)
+    R, C = p.rows, p.cols
+    full = lambda shape, v: torch.full(shape, v, dtype=dtype, device=dev)
+    zeros = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=dev)
+    pij0 = full((R, C), p.p_init * p.p_init)
+    pi0, pj0 = full((R,), p.p_init), full((C,), p.p_init)
+    eps, eps2 = (torch.tensor(v, dtype=dtype) for v in (p.eps, p.eps**2))
+    w0 = torch.log((pij0 + eps2) / ((pi0[:, None] + eps) * (pj0[None, :] + eps)))
+    return HCUState(
+        zij=zeros((R, C)), eij=zeros((R, C)), pij=pij0, wij=w0,
+        tij=zeros((R, C), torch.int32),
+        zi=zeros((R,)), ei=zeros((R,)), pi=pi0, ti=zeros((R,), torch.int32),
+        zj=zeros((C,)), ej=zeros((C,)), pj=pj0, h=zeros((C,)))
 
 
 def init_hcu_batch(p: BCPNNParams, n_hcu: int, device) -> HCUState:
@@ -270,6 +293,29 @@ def periodic_update(st: HCUState, w_rows, counts, key, p: BCPNNParams):
     ms) of every HCU. Returns (st', fired_j (H,))."""
     h, fired_j = periodic_math(st.h, st.pj, w_rows, counts, key, p)
     return st._replace(h=h), fired_j
+
+
+def column_update(st: HCUState, j, now, p: BCPNNParams) -> HCUState:
+    """The lazy column update of one HCU's (R, C) state for an output
+    spike at column ``j`` (an int or an int32 tensor; a no-op when
+    j < 0): the i-vector decayed to ``now`` on the fly (values only), one
+    `ops.col_update` launch on the gathered column (`col_block_kernel` on
+    CUDA), the column written back in place, then Zj[j] += 1. Returns the
+    state with the bumped Zj. No host read: j stays a tensor."""
+    dev = st.zij.device
+    j = torch.as_tensor(j, dtype=torch.int64, device=dev).reshape(1)
+    active = j >= 0
+    safe_j = torch.clamp(j, min=0)
+    zep_i = ivec_decay(st.zi, st.ei, st.pi, st.ti, now, p)
+    planes = (st.zij, st.eij, st.pij, st.wij, st.tij)
+    old = tuple(pl.index_select(1, safe_j).T for pl in planes)    # (1, R)
+    new = ops.col_update(old[0], old[1], old[2], old[4], now,
+                         zep_i.z[None], zep_i.p[None], st.pj[safe_j],
+                         coeffs_ij(p), p.eps)
+    for pl, v_new, v_old in zip(planes, new, old):
+        pl.index_copy_(1, safe_j, torch.where(active, v_new, v_old).T)
+    bump = torch.zeros_like(st.zj).index_fill_(0, safe_j, 1.0)
+    return st._replace(zj=st.zj + torch.where(active, bump, 0.0))
 
 
 def hcu_tick_pre(st: HCUState, rows, now, key, p: BCPNNParams):

@@ -13,9 +13,27 @@ Every scatter that the JAX package writes with ``mode="drop"`` goes to a
 copy with one spare slot past the end, which takes the out-of-range writes
 and is cut off: CUDA indexing would fault on them instead. Nothing here
 reads a device value back to the host, so a tick never synchronises.
+
+Drivers, as in the JAX package:
+
+  * `network_tick` — one tick (the host-loop building block);
+  * `run`          — the per-tick host loop, one read of the time a tick;
+  * `network_run`  — the production path over pre-staged input (T, H,
+                     A_ext), in chunks of ``chunk`` ticks (default 128).
+                     On CUDA each chunk is one replay of a CUDA graph that
+                     holds ``chunk`` calls of `engine.tick` (`ChunkGraphs`),
+                     the counterpart of the JAX package's `lax.scan` chunk;
+                     on the CPU the same ticks run one by one.
+
+Chunking contract (the JAX package's): ext[k] is consumed by tick t0+k+1,
+t0 being state.t at entry; the fired history is (T, H) int32; T need not
+divide by ``chunk`` — full chunks share one graph and the remainder takes
+a second, so there are at most two captures per (shape, backend). Every
+driver gives the same trajectory bit for bit, whatever ``chunk`` is.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -193,30 +211,229 @@ def network_tick(state: NetworkState, conn: Connectivity, ext_rows,
     return be.carry_out(state), fired
 
 
+def _run_ticks(state: NetworkState, conn: Connectivity, ext, p: BCPNNParams,
+               be, cap_fire, fired: torch.Tensor) -> NetworkState:
+    """The ticks of ext (T, H, A_ext) between one `carry_in` and one
+    `carry_out` of the backend: the body of a chunk. Tick k's fired vector
+    is copied into ``fired[k]`` ((T, H) int32) as it comes, so nothing of a
+    tick outlives it. Returns state'."""
+    from repro_torch.core import engine as E
+    state = be.carry_in(state)
+    for k, e in enumerate(ext):
+        state, f = E.tick(state, conn, e, p, be, cap_fire)
+        fired[k].copy_(f)
+    return be.carry_out(state)
+
+
 def network_run(state: NetworkState, conn: Connectivity, ext: torch.Tensor,
-                p: BCPNNParams, *, eager: bool = False, merged: bool = False,
-                cap_fire: int | None = None, worklist: bool | None = None,
-                fused: bool | None = None, fused_cols: bool | None = None,
-                layout=None):
-    """Run len(ext) ticks: ext (T, H, A_ext) int32 pre-staged external
-    spikes, consumed by ticks t0+1 .. t0+T. Returns (state', fired (T, H)
-    int32). A Python loop over `engine.tick` with the backend that the
-    flags select, between one `carry_in` and one `carry_out` (the stored
-    ``layout`` to the backend's carry and back); the ij planes and
-    i-vectors of the carry are updated in place. Reads nothing back to the
-    host."""
+                p: BCPNNParams, *, chunk: int = 128, eager: bool = False,
+                merged: bool = False, cap_fire: int | None = None,
+                worklist: bool | None = None, fused: bool | None = None,
+                fused_cols: bool | None = None, layout=None,
+                graphs: "ChunkGraphs | None" = None):
+    """Run len(ext) ticks in chunks of ``chunk`` (the module docstring's
+    contract): ext (T, H, A_ext) int32 pre-staged external spikes. Returns
+    (state', fired (T, H) int32). Reads nothing back to the host.
+
+    On the CPU each chunk runs its ticks one by one between one `carry_in`
+    and one `carry_out` of the backend the flags select. On CUDA each
+    chunk is one replay of a captured CUDA graph (`ChunkGraphs`), with no
+    fallback: a capture that fails raises. The state is updated in place
+    and returned (the JAX package donates it): its tensors are the graphs'
+    static carry. ``graphs`` keeps the captures for the next call on the
+    same state (the `Simulator` holds one); None captures afresh."""
     from repro_torch.core import engine as E
     be = E.select_backend(p, eager=eager, merged=merged, worklist=worklist,
                           fused=fused, fused_cols=fused_cols, layout=layout)
+    if chunk < 1:
+        raise ValueError(f"chunk must be at least 1, got {chunk}")
     n = state.delay_rows.shape[0]
-    if ext.shape[0] == 0:
-        return state, torch.zeros((0, n), dtype=torch.int32, device=ext.device)
-    state = be.carry_in(state)
-    hist = []
-    for e in ext:
-        state, fired = E.tick(state, conn, e, p, be, cap_fire)
-        hist.append(fired)
-    return be.carry_out(state), torch.stack(hist)
+    dev = state.t.device
+    T = ext.shape[0]
+    if T == 0:
+        return state, torch.zeros((0, n), dtype=torch.int32, device=dev)
+    if dev.type == "cpu":
+        fired = torch.empty((T, n), dtype=torch.int32)
+        for i in range(0, T, chunk):
+            state = _run_ticks(state, conn, ext[i:i + chunk], p, be, cap_fire,
+                               fired[i:i + chunk])
+        return state, fired
+    graphs = ChunkGraphs() if graphs is None else graphs
+    return graphs.run(state, conn, ext.to(dev, torch.int32), p, be, cap_fire,
+                      chunk)
+
+
+# ---------------------------------------------------------------------------
+# CUDA-graph chunks
+# ---------------------------------------------------------------------------
+
+class _Chunk(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    ext: torch.Tensor        # (L, H, A_ext) static input
+    fired: torch.Tensor      # (L, H) static fired rows
+
+
+def _leaves(tree):
+    """The tensor leaves of a NetworkState (its HCUState included), in
+    field order."""
+    for v in tree:
+        if isinstance(v, tuple):
+            yield from _leaves(v)
+        elif v is not None:
+            yield v
+
+
+def _identity(*trees):
+    return tuple((t.data_ptr(), t.shape, t.stride(), t.dtype)
+                 for tree in trees for t in _leaves(tree))
+
+
+def _pairs(held, new):
+    """(held leaf, new leaf) of two states of one structure, field by field;
+    raises where a field is a tensor on one side and not the other."""
+    for f, a, b in zip(held._fields, held, new, strict=True):
+        if type(a) is not type(b):
+            raise RuntimeError(f"the tick changed the state's field {f} from "
+                               f"{type(a).__name__} to {type(b).__name__}")
+        if isinstance(a, tuple):
+            yield from _pairs(a, b)
+        elif a is not None:
+            yield a, b
+
+
+@functools.cache
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream that every capture on ``device`` records on, one per
+    device and process: the scratch tick of `_load_kernels` sets up each
+    library's per-stream state (cuBLAS's workspace) on it once for all."""
+    return torch.cuda.Stream(device)
+
+
+# (device, backend, cap_fire, parameters, A_ext) whose scratch tick this
+# process has run; the scratch tick's launches count like any others
+scratch_ticked: set = set()
+
+
+def _load_kernels(p: BCPNNParams, be, cap_fire, A_ext: int,
+                  stream: torch.cuda.Stream) -> None:
+    """Before the first capture of a backend on a device: one tick of a
+    two-HCU scratch network of the same backend and widths, on the
+    device's capture stream, once per process. On the H100 (CUDA 12.8) a
+    kernel that has never run loads inside a capture as well, but the
+    eager path's first matmul cannot create its cuBLAS handle there. The
+    held state is never ticked for this."""
+    sig = (stream.device, be, cap_fire, p, A_ext)
+    if sig in scratch_ticked:
+        return
+    stream.wait_stream(torch.cuda.current_stream(stream.device))
+    with torch.cuda.stream(stream):
+        key = rng.PRNGKey(0, stream.device)
+        scratch = init_network(p, key, 2, layout=be.layout)
+        ext = torch.full((1, 2, A_ext), p.rows, dtype=torch.int32,
+                         device=stream.device)
+        _run_ticks(scratch, make_connectivity(p, key, 2), ext, p, be,
+                   cap_fire, torch.empty((1, 2), dtype=torch.int32,
+                                         device=stream.device))
+    scratch_ticked.add(sig)
+
+
+class ChunkGraphs:
+    """The captured chunks of one held state: the counterpart of the JAX
+    package's compiled `lax.scan` chunk, one `torch.cuda.CUDAGraph` per
+    chunk length, replayed once per chunk.
+
+    * Static carry: the state handed to the first `run` IS the carry. Its
+      ij planes and i-vectors, which the worklist kernels rewrite in
+      place, are captured as they are; every leaf that a tick replaces
+      with a new tensor (the delay queue, the time, the counters, the
+      j-vectors and support, and under the dense and eager backends the
+      planes the backend rebuilds) is copied back into the carry's own
+      tensor as the graph's last operations. No graph's output is another
+      graph's input, so the graphs share one memory pool.
+    * Static input (L, H, A_ext) and fired rows (L, H): the chunk's input
+      is copied in before each replay and the fired rows out after it.
+    * A graph never outlives the tensors it was captured on: the captures
+      are keyed by the backend, the parameters and the identity of every
+      leaf of the state and the connectivity, and a run on anything else
+      drops them and captures afresh (as `clear` does).
+    * Capture neither advances the state nor synchronises: it records on
+      the device's capture stream (`_capture_stream`), which waits on the
+      current one by event, so it may run under sync-debug "error".
+    * The kernels' launch counters (`bcpnn_update.launches`) count the
+      wrappers' launches: a capture records each launch into its graph
+      and counts it there; a replay runs what was recorded and counts
+      nothing (a device trace of a replay counts what ran).
+
+    ``captured`` maps each chunk length to its graph, in capture order
+    (each kept with ``keep_graph=True``, so ``raw_cuda_graph()`` can be
+    inspected)."""
+
+    def __init__(self):
+        self.clear()
+
+    def clear(self) -> None:
+        """Drop every graph and its memory."""
+        self._key = self._carry = self._conn = None
+        self._chunks: dict[tuple, _Chunk] = {}
+        self._pool = None
+
+    @property
+    def captured(self) -> dict[int, torch.cuda.CUDAGraph]:
+        return {L: c.graph for (L, _), c in self._chunks.items()}
+
+    def run(self, state: NetworkState, conn: Connectivity, ext, p, be,
+            cap_fire, chunk: int):
+        """Replay the chunks of ext (T, H, A_ext), on ``ext``'s device, on
+        ``state``; returns (state, fired (T, H))."""
+        key = (be, cap_fire, p, _identity(state, conn))
+        if key != self._key:
+            self.clear()
+            self._key, self._carry, self._conn = key, state, conn
+        T, n, A_ext = ext.shape
+        out = torch.empty((T, n), dtype=torch.int32, device=ext.device)
+        for i in range(0, T, chunk):
+            L = min(chunk, T - i)
+            c = self._chunks.get((L, A_ext))
+            if c is None:
+                c = self._capture(L, A_ext, p, be, cap_fire)
+            c.ext.copy_(ext[i:i + L])
+            c.graph.replay()
+            out[i:i + L].copy_(c.fired)
+        return state, out
+
+    def _capture(self, L: int, A_ext: int, p: BCPNNParams, be,
+                 cap_fire) -> _Chunk:
+        carry, conn = self._carry, self._conn
+        dev = carry.t.device
+        n = carry.delay_rows.shape[0]
+        side = _capture_stream(dev)
+        _load_kernels(p, be, cap_fire, A_ext, side)
+        ext = torch.full((L, n, A_ext), p.rows, dtype=torch.int32, device=dev)
+        fired = torch.empty((L, n), dtype=torch.int32, device=dev)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=self._pool)
+            try:
+                final = _run_ticks(carry, conn, ext, p, be, cap_fire, fired)
+                for dst, src in _pairs(carry, final):
+                    if src.data_ptr() != dst.data_ptr():
+                        dst.copy_(src)
+                del final
+            except BaseException:
+                try:        # end the capture; the error raised is the first
+                    graph.capture_end()
+                except RuntimeError:
+                    pass
+                raise
+            graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph.instantiate()
+        c = _Chunk(graph, ext, fired)
+        self._chunks[(L, A_ext)] = c
+        return c
 
 
 def run(state: NetworkState, conn: Connectivity, ext_fn, n_ticks: int,

@@ -6,8 +6,12 @@ per-HCU keys and the soft-WTA noise from `jax.random`; the port reproduces
 those streams bit for bit so that its fired history can equal the JAX
 package's. This is a transcription of `jax/_src/prng.py` (`threefry_2x32`,
 `_threefry_split_original`, `threefry_fold_in`,
-`_threefry_random_bits_original`) and `jax/_src/random.py` (`_uniform`,
-`_randint`, `_gumbel` in mode "low", `categorical`).
+`_threefry_random_bits_original`, with its 8- and 16-bit branches) and
+`jax/_src/random.py` (`_uniform`, `_randint`, `_gumbel` in mode "low",
+`categorical`). The floating draws take float32 or bfloat16, as JAX
+draws them: bfloat16 gets 8 random bits a value (it has 7 mantissa bits),
+and every operation after the bits rounds to bfloat16, the bounds
+included.
 
 A key is an int64 tensor of shape (..., 2) holding two uint32 words. All
 uint32 arithmetic runs in int64 and is masked with 0xFFFFFFFF, which is
@@ -82,24 +86,48 @@ def split(key, num: int = 2):
     return _hash(key, count).reshape(tuple(key.shape[:-1]) + (num, 2))
 
 
-def random_bits(key, shape=()):
-    """`_threefry_random_bits_original` for 32-bit words: (..., *shape)."""
+def random_bits(key, shape=(), bit_width: int = 32):
+    """`_threefry_random_bits_original`: (..., *shape) words of
+    ``bit_width`` bits (32, 16 or 8) as int64. A 16- or 8-bit draw takes
+    the 32-bit words of ceil(bit_width * size / 32) counts and cuts each
+    word into 32 // bit_width pieces, low bits first."""
     size = 1
     for s in shape:
         size *= s
-    count = torch.arange(size, dtype=torch.int64, device=key.device)
-    return _hash(key, count).reshape(tuple(key.shape[:-1]) + tuple(shape))
+    if bit_width not in (8, 16, 32):
+        raise ValueError(f"bit_width must be 8, 16 or 32, got {bit_width}")
+    per_word = 32 // bit_width
+    n_words = -(-size // per_word)
+    count = torch.arange(n_words, dtype=torch.int64, device=key.device)
+    words = _hash(key, count)
+    if per_word > 1:
+        shifts = torch.arange(per_word, device=key.device) * bit_width
+        words = ((words[..., None] >> shifts) & ((1 << bit_width) - 1))
+        words = words.reshape(tuple(key.shape[:-1]) + (-1,))[..., :size]
+    return words.reshape(tuple(key.shape[:-1]) + tuple(shape))
 
 
-def uniform(key, shape=(), minval: float = 0.0, maxval: float = 1.0):
-    """`jax.random.uniform` in float32: 23 random mantissa bits under the
-    exponent of 1.0, minus 1, scaled to [minval, maxval)."""
-    bits = random_bits(key, shape)
-    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    floats = fbits.view(torch.float32) - 1.0
-    # float32 bounds as CPU scalars: no copy to the key's device
-    lo = torch.tensor(minval, dtype=torch.float32)
-    hi = torch.tensor(maxval, dtype=torch.float32)
+# dtype -> (bits, mantissa bits, the integer type its bits are viewed as,
+# the bits of 1.0)
+_FLOATS = {torch.float32: (32, 23, torch.int32, 0x3F800000),
+           torch.bfloat16: (16, 7, torch.int16, 0x3F80)}
+
+
+def uniform(key, shape=(), minval: float = 0.0, maxval: float = 1.0,
+            dtype=torch.float32):
+    """`jax.random.uniform`: random mantissa bits under the exponent of
+    1.0, minus 1, scaled to [minval, maxval), each step rounded to
+    ``dtype`` (float32 or bfloat16)."""
+    if dtype not in _FLOATS:
+        raise ValueError(f"uniform takes float32 or bfloat16, got {dtype}")
+    nbits, nmant, view, one = _FLOATS[dtype]
+    rng_bits = 8 if nmant < 8 else nbits
+    bits = random_bits(key, shape, rng_bits)
+    fbits = ((bits >> (rng_bits - nmant)) | one).to(view)
+    floats = fbits.view(dtype) - 1.0
+    # the bounds in ``dtype`` as CPU scalars: no copy to the key's device
+    lo = torch.tensor(minval, dtype=dtype)
+    hi = torch.tensor(maxval, dtype=dtype)
     return torch.clamp(floats * (hi - lo) + lo, min=lo.item())
 
 
@@ -117,20 +145,21 @@ def randint(key, shape, minval: int, maxval: int):
     return (minval + off).to(torch.int32)
 
 
-def gumbel(key, shape=()):
-    """`jax.random.gumbel` in float32, mode "low": -log(-log(u)) with u
-    uniform in [tiny, 1)."""
-    tiny = torch.finfo(torch.float32).tiny
-    u = uniform(key, shape, minval=tiny, maxval=1.0)
+def gumbel(key, shape=(), dtype=torch.float32):
+    """`jax.random.gumbel`, mode "low": -log(-log(u)) with u uniform in
+    [tiny, 1), in ``dtype`` (float32 or bfloat16)."""
+    tiny = torch.finfo(dtype).tiny
+    u = uniform(key, shape, minval=tiny, maxval=1.0, dtype=dtype)
     return -torch.log(-torch.log(u))
 
 
 def categorical(key, logits):
     """`jax.random.categorical` along the last axis (Gumbel argmax; the
-    first maximum wins, as in `jnp.argmax`). key (..., 2) pairs with the
-    leading dims of logits, and each key draws the rest of logits' shape:
-    keys (H, 2) with logits (H, C) draw (C,) each, one key (2,) draws all
-    of (B, C), as `jax.random.categorical` does with one key. Returns
-    int32 of logits' shape without its last axis."""
-    g = gumbel(key, tuple(logits.shape[key.dim() - 1:]))
+    first maximum wins, as in `jnp.argmax`), its noise drawn in the
+    logits' dtype. key (..., 2) pairs with the leading dims of logits,
+    and each key draws the rest of logits' shape: keys (H, 2) with logits
+    (H, C) draw (C,) each, one key (2,) draws all of (B, C), as
+    `jax.random.categorical` does with one key. Returns int32 of logits'
+    shape without its last axis."""
+    g = gumbel(key, tuple(logits.shape[key.dim() - 1:]), logits.dtype)
     return torch.argmax(g + logits, dim=-1).to(torch.int32)

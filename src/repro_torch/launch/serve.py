@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import rng
-from repro_torch.core.engine import resolve_device
+from repro_torch.core.device import resolve_device
 from repro_torch.models.transformer import Model
 from repro_torch.train.serve_step import make_decode_step, make_prefill, sample
 

@@ -98,7 +98,7 @@ class ArchConfig:
     def param_count(self) -> int:
         """Exact parameter count: the sum of ``numel`` over a model built
         on the ``meta`` device (no allocation). Raises for the families
-        whose blocks are not ported (ROADMAP queue A item 12)."""
+        whose blocks are not ported (ROADMAP queue A item 8)."""
         from repro_torch.models.transformer import Model  # lazy: no cycle
         return sum(p.numel() for p in Model(self, device="meta").parameters())
 

@@ -147,7 +147,7 @@ def attend(params, x, cfg: ArchConfig, *, positions, sliding_window=None,
     """Causal self-attention; returns (out (B,Sq,D), cache). (The JAX
     package's cross-attention and bidirectional arguments, ``kv``,
     ``kv_positions`` and ``causal=False``, serve the VLM and audio blocks,
-    which are not ported: ROADMAP queue A item 12.)
+    which are not ported: ROADMAP queue A item 8.)
 
     With ``cache`` this is a cached prefill (Sq > 1) or decode step
     (Sq == 1): the new keys and values go to slots [length, length + Sq)

@@ -8,14 +8,14 @@ pattern position), where the JAX package stacks each pattern position's
 parameters along the repeats and scans them; serving needs neither scan
 nor remat. The other kinds (``attn_moe``, ``mamba``, ``mlstm``,
 ``slstm``, ``shared_attn``, ``cross``, ``enc_attn``, ``dec_cross``) raise
-`NotImplementedError`: ROADMAP queue A item 12 ports them.
+`NotImplementedError`: ROADMAP queue A item 8 ports them.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.core.engine import resolve_device
+from repro_torch.core.device import resolve_device
 from repro_torch.models.base import ArchConfig, dense_init
 from repro_torch.models.layers import (KVCache, attend, init_attn, init_mlp,
                                        mlp, rms_norm)
@@ -25,7 +25,7 @@ PORTED_KINDS = ("attn", "attn_local")
 
 def _unported(what: str):
     return NotImplementedError(
-        f"{what}: not ported to PyTorch yet (ROADMAP queue A item 12: "
+        f"{what}: not ported to PyTorch yet (ROADMAP queue A item 8: "
         "MoE, SSM / hybrid, VLM and audio blocks)")
 
 

@@ -12,12 +12,16 @@ def sample(logits, key, temperature: float = 0.0):
     """logits (B, 1, V) -> (B, 1) int32 token ids. temperature == 0 is
     greedy (the first maximum wins, as in `jnp.argmax`); otherwise one
     Gumbel draw from ``key`` over the (B, V) logits, bit for bit
-    `jax.random.categorical` on float32 logits (the port samples bf16
-    logits in float32, where JAX draws its noise in bf16)."""
+    `jax.random.categorical` in the logits' dtype (float32 or bfloat16):
+    the temperature is rounded to that dtype and divides exactly, as JAX
+    divides by a weakly typed scalar, and the noise is drawn in it."""
     last = logits[:, -1, :]
     if temperature == 0.0:
         return torch.argmax(last, dim=-1)[:, None].to(torch.int32)
-    return rng.categorical(key, last.float() / temperature)[:, None]
+    # a 0-d tensor on the logits' device: PyTorch's CUDA division by a CPU
+    # scalar multiplies by its reciprocal, which is not JAX's division
+    temp = torch.full((), temperature, dtype=last.dtype, device=last.device)
+    return rng.categorical(key, last / temp)[:, None]
 
 
 def make_prefill(model: Model):

@@ -35,6 +35,14 @@ for i, shape in enumerate(SHAPES):
             lambda k: jax.random.randint(k, shape, lo, hi, jnp.int32))(keys)
 OUT["categorical"] = jax.vmap(jax.random.categorical)(keys, IN["logits"])
 OUT["gumbel"] = jax.vmap(lambda k: jax.random.gumbel(k, (16,)))(keys)
+for dt in ("bfloat16",):
+    for i, shape in enumerate(SHAPES):
+        OUT[f"uniform{i}_{dt}"] = np.asarray(jax.vmap(
+            lambda k: jax.random.uniform(k, shape, dt))(keys)).view(np.uint16)
+    OUT[f"gumbel_{dt}"] = np.asarray(jax.vmap(
+        lambda k: jax.random.gumbel(k, (64,), dt))(keys)).view(np.uint16)
+    OUT[f"categorical_{dt}"] = jax.vmap(jax.random.categorical)(
+        keys, jnp.asarray(IN["logits"]).astype(dt))
 """
 
 
@@ -94,6 +102,26 @@ def test_categorical_and_gumbel(ref, keys):
     # log differ by at most an ulp or so, which never moved an argmax here
     np.testing.assert_allclose(rng.gumbel(keys, (16,)).numpy(), ref["gumbel"],
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("draw", ["uniform", "gumbel", "categorical"])
+def test_bfloat16_draws(ref, keys, draw):
+    """The bfloat16 draws, bit for bit: 8 random bits a value (bfloat16 has
+    7 mantissa bits), and every step after the bits, the Gumbel noise's
+    two logs included, rounded to bfloat16 as XLA rounds them."""
+    bf16 = torch.bfloat16
+    bits = lambda t: t.view(torch.int16).numpy().view(np.uint16)
+    if draw == "uniform":
+        for i, shape in enumerate(SHAPES):
+            np.testing.assert_array_equal(
+                bits(rng.uniform(keys, shape, dtype=bf16)),
+                ref[f"uniform{i}_bfloat16"], err_msg=str(shape))
+    elif draw == "gumbel":
+        np.testing.assert_array_equal(bits(rng.gumbel(keys, (64,), bf16)),
+                                      ref["gumbel_bfloat16"])
+    else:
+        got = rng.categorical(keys, torch.from_numpy(ref["logits"]).to(bf16))
+        np.testing.assert_array_equal(got.numpy(), ref["categorical_bfloat16"])
 
 
 @pytest.mark.parametrize("name", ["lazy_worklist", "lazy_dense"])

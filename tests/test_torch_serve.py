@@ -10,8 +10,11 @@
   mixed prompt lengths, which takes the dense path with the pad mask).
   The tokens must be equal; the fixture's prefill logits agree to atol
   5e-6 (|logits| < 0.6; the measured gap is 8e-7).
-* `sample` at temperature > 0 against `jax.random.categorical` (float32
-  logits, one key for the batch): equal tokens.
+* `sample` at temperature > 0 against `jax.random.categorical` (one key
+  for the batch): equal tokens on (3, 512) float32 logits, and on
+  (4, 1, 512) logits in float32 and in bfloat16 for the keys of seeds
+  0..39 (160 tokens each; the bf16 draw divides and draws its noise in
+  bf16, as JAX does).
 * The engine's own contracts, as tests/test_serve.py holds the JAX
   engine: a ragged wave equals solo runs, a queue deeper than the slots
   drains without loss or duplicates, and each slot stops at its own
@@ -63,6 +66,10 @@ for arch in ARCHS:
         OUT[f"{arch}/{tag}"] = np.array([r.out for r in done], np.int32)
 logits = jnp.asarray(IN["logits"])
 OUT["sampled"] = jax.random.categorical(jax.random.PRNGKey(3), logits / 0.7)
+for dt in ("float32", "bfloat16"):
+    lg = jnp.asarray(IN["logits40"]).astype(dt)[:, -1, :] / 0.7
+    OUT[f"sampled40_{dt}"] = np.stack(
+        [jax.random.categorical(jax.random.PRNGKey(s), lg) for s in range(40)])
 """
 
 
@@ -76,10 +83,28 @@ def _logits():
     return np.random.default_rng(12).normal(size=(3, 512)).astype(np.float32) * 3
 
 
+def _logits40():
+    """(4, 1, 512) float32 logits, sampled in float32 and in bfloat16."""
+    return (np.random.default_rng(13).normal(size=(4, 1, 512)) * 3).astype(
+        np.float32)
+
+
+SAMPLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _sample40(dtype, device):
+    """sample(temperature=0.7) of `_logits40` in ``dtype`` with the keys of
+    seeds 0..39: (40, 4) tokens."""
+    lg = torch.from_numpy(_logits40()).to(device, SAMPLE_DTYPES[dtype])
+    return np.stack([sample(lg, rng.PRNGKey(s, device), 0.7)[:, 0].cpu().numpy()
+                     for s in range(40)])
+
+
 @pytest.fixture(scope="module")
 def live():
     head = f"ARCHS = {LIVE_ARCHS!r}\nMAX_LEN = {MAX_LEN}\n"
-    return run_jax(head + LIVE_BODY, {**_prompts(), "logits": _logits()})
+    return run_jax(head + LIVE_BODY, {**_prompts(), "logits": _logits(),
+                                      "logits40": _logits40()})
 
 
 def _flat(d, arch, bits=False):
@@ -155,6 +180,11 @@ def test_sample_matches_jax_categorical(live):
     greedy = sample(logits, rng.PRNGKey(3))
     np.testing.assert_array_equal(greedy[:, 0].numpy(),
                                   _logits().argmax(axis=-1))
+    for dtype in SAMPLE_DTYPES:
+        got = _sample40(dtype, "cpu")
+        assert got.shape == (40, 4)
+        np.testing.assert_array_equal(got, live[f"sampled40_{dtype}"],
+                                      err_msg=dtype)
 
 
 @pytest.fixture(scope="module")
@@ -240,3 +270,23 @@ def test_cuda_fixture_replays_through_the_kernel(fixture, arch):
     n_layers = get_smoke_config(arch).n_layers
     # one prefill for the logits, one for the served wave
     assert FA.launches["flash_attention"] == before + 2 * n_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(SAMPLE_DTYPES))
+def test_sample_on_cuda_equals_the_cpu(dtype):
+    """The card samples the tokens the CPU samples (which the JAX test
+    above holds). In bfloat16 it draws the same Gumbel noise bit for bit,
+    over all 128 values the 8-bit draw can take; in float32 the two logs
+    may differ by an ulp, as torch's and XLA's do (tests/test_torch_rng.py)."""
+    dev = _cuda()
+    np.testing.assert_array_equal(_sample40(dtype, dev), _sample40(dtype, "cpu"))
+    key = rng.PRNGKey(5)
+    g_cpu = rng.gumbel(key, (1 << 14,), SAMPLE_DTYPES[dtype])
+    g_dev = rng.gumbel(key.to(dev), (1 << 14,), SAMPLE_DTYPES[dtype]).cpu()
+    if dtype == "bfloat16":
+        assert len(torch.unique(g_cpu)) == 128
+        assert torch.equal(g_dev, g_cpu)
+    else:
+        np.testing.assert_allclose(g_dev.numpy(), g_cpu.numpy(), rtol=1e-5,
+                                   atol=1e-6)
