@@ -28,9 +28,13 @@ toolkit. Phases, in order; any failure exits non-zero:
                kernels, each under the flags it was captured with
                (head_lazy_worklist in all four fused / fused_cols
                combinations, head_lazy_dense with worklist=False, head_eager
-               with eager=True, head_host_lazy through `run_host`), and the
+               with eager=True, head_host_lazy through `run_host`,
+               head_merged_dense with merged=True, worklist=False and
+               head_merged_worklist with merged=True, worklist=True), the
                five lazy ones again with the planes stored in tiles (8, 4)
-               and (7, 5). Each runs on the per-tick driver
+               and (7, 5), and the two merged ones in both tiles too (their
+               rings `jring` held exactly with the integer leaves). Each
+               runs on the per-tick driver
                (`Simulator.tick`, or `run_host`), then on the CUDA-graph
                driver (`Simulator.run`) at chunks of 128 (one 40-tick graph)
                and 7 (graphs of 7 and 5 ticks): every run holds the fired
@@ -70,6 +74,33 @@ toolkit. Phases, in order; any failure exits non-zero:
                out_rate. Peak GiB with and without graphs. fused_blocked's
                and eager's fired histories must equal the fused path's over
                the same ticks.
+               Merged mode (merged=True, the worklist backend in mode
+               "merged", 100 timed ticks) runs the same way twice: from the
+               cold start (merged) and from a state whose rings each hold 8
+               spike times before tick 0 (merged_warm: no bump applies, so
+               every fire of a full ring takes the overflow flush). No
+               hand-written kernel may launch on either (counters at capture
+               and per tick, and the replay trace); the per-tick profile
+               times the merged row phase, the WTA, the overflow flush and
+               the patch; merged's fired history must equal the fused
+               path's over the first 20 ticks. Fires and overflow flushes
+               per timed tick are counted from the fired history (a fire
+               on a column whose ring holds 8 times flushes and empties
+               it, any other pushes), the count held against the rings
+               read back after the timed runs.
+  5b. checkpoints — the merged path's state (human_scale, 256 HCUs unless
+               the disk holds less; warm rings, 20 ticks through the
+               graphs) saved with `Simulator.save` into a temporary
+               directory under build/ and loaded into a fresh CUDA
+               Simulator: every leaf bit for bit, and one more tick fires
+               the same and leaves the same state on both. Seconds and
+               GB/s of the save, the load and `AsyncCheckpointer.save_async`
+               (the snapshot to the host, then the background write, whose
+               checkpoint loads bit for bit too). The committed legacy
+               checkpoint (tests/fixtures/legacy_ckpt, the JAX package's
+               (H, R, C) layout at t=10) restores into a CUDA Simulator and
+               continues as an uninterrupted run. The directory is removed
+               afterwards.
   6. flash   — the flash-attention kernels against their plain version on
                the card, on the model's layout: q (B, Sq, H, hd) and the KV
                cache (B, slots, Kv, hd) read in place. The qwen2-1.5b
@@ -140,6 +171,8 @@ FIXTURE_TOL = {"hcus_wij": (4e-6, 4e-6), "hcus_h": (4e-6, 1e-4)}
 FIXTURE_DEFAULT_TOL = (4e-6, 4e-7)
 INT_LEAVES = ("hcus_tij", "hcus_ti", "delay_rows", "delay_count", "t",
               "drops_in", "drops_fire")
+MERGED_MATCH_TICKS = 20   # merged's fired history against the fused path's
+CKPT_TICKS = 20           # ticks of the merged state before the checkpoint
 
 
 def fail(msg):
@@ -511,6 +544,14 @@ FIXTURES = [("lazy_worklist", dict(worklist=True, fused=f, fused_cols=fc),
     ("host_lazy", dict(worklist=False), True)]
 FIXTURES += [(name, dict(kw, layout=tile), host)
              for tile in ((8, 4), (7, 5)) for name, kw, host in FIXTURES[:5]]
+# merged mode: 4 HCUs of (24, 16) at out_rate 0.6 (MERGED_DIMS), every HCU
+# in the fired batch
+MERGED_DIMS = dict(n_hcu=4, rows=24, cols=16, fanout=4, active_queue=8,
+                   max_delay=8, out_rate=0.6)
+FIXTURES += [(name, dict(merged=True, worklist=wl, cap_fire=4, layout=tile),
+              False) for tile in (None, (8, 4), (7, 5))
+             for name, wl in (("merged_dense", False),
+                              ("merged_worklist", True))]
 
 
 # the chunk lengths phase 4 replays each fixture at through the graph
@@ -525,7 +566,7 @@ def fixture_gaps(tag, fired, got, d):
     float gaps by leaf."""
     if not np.array_equal(fired, d["fired"]):
         fail(f"fixture {tag}: fired history differs")
-    for k in INT_LEAVES:
+    for k in INT_LEAVES + (("jring",) if "jring" in d else ()):
         if not np.array_equal(got[k], d[k]):
             fail(f"fixture {tag}: {k} differs")
     gaps = {}
@@ -551,9 +592,10 @@ def phase_fixtures(dev):
     from repro_torch import convert
     from repro_torch.core import Simulator
     from repro_torch.core.layout import BlockedLayout
-    from repro_torch.core.params import test_scale
-    p = test_scale(4, 64, 16)
+    from repro_torch.core.params import BCPNNParams, test_scale
     for name, kw, host in FIXTURES:
+        p = (BCPNNParams(**MERGED_DIMS) if kw.get("merged")
+             else test_scale(4, 64, 16))
         d = dict(np.load(ROOT / "tests" / "fixtures" / f"head_{name}.npz"))
         tile = kw.get("layout")
         kw = dict(kw, layout=tile and BlockedLayout(p.rows, p.cols, *tile))
@@ -618,7 +660,46 @@ PATHS = {
                 ("worklist_row_update", "col_update")),
     "dense": (dict(worklist=False), OTHER_TICKS, ("row_update", "col_update")),
     "eager": (dict(eager=True), EAGER_TICKS, ()),
+    "merged": (dict(merged=True), OTHER_TICKS, ()),
+    "merged_warm": (dict(merged=True), OTHER_TICKS, ()),
 }
+
+
+def warm_rings(sim):
+    """Fill every ring of a fresh merged Simulator with 8 spike times
+    before tick 0 (-7 .. 0): no bump applies to any cell (each lies at or
+    before every stamp), so the values equal the cold start's until a
+    flush, and the first fire of each column finds its ring full."""
+    import torch
+    from repro_torch.core import merged as M
+    ring = sim.state.jring
+    ring.copy_(torch.arange(-M.RING_DEPTH + 1, 1, dtype=ring.dtype,
+                            device=ring.device))
+
+
+# path -> what is done to each of its Simulators before the first tick
+PREPARE = {"merged_warm": warm_rings}
+
+
+def ring_flushes(fired, held):
+    """Replay a merged run's overflow rule on the host from its fired
+    history (T, H): a fire on a column whose ring holds RING_DEPTH times
+    flushes it (the ring empties, nothing is pushed), any other fire
+    pushes one time. ``held`` (H, C): the times each ring holds at the
+    start, updated in place. Returns the flushes of each tick (T,)."""
+    from repro_torch.core import merged as M
+    out = np.zeros(fired.shape[0], np.int64)
+    for t, row in enumerate(fired):
+        for h in np.nonzero(row >= 0)[0]:
+            j = row[h]
+            if held[h, j] == M.RING_DEPTH:
+                held[h, j] = 0
+                out[t] += 1
+            else:
+                held[h, j] += 1
+    return out
+
+
 # the path whose launch count each kernel reports
 REPORT_PATH = {"fused_row_update": "fused", "fused_col_update": "fused",
                "worklist_row_update": "unfused", "row_update": "dense",
@@ -744,16 +825,22 @@ def run_path(name, p, ext, kw):
     sync-debug "error", each kernel launched once a tick, its fired
     history equal to the graphs' over the same ticks, then the per-phase
     profile (`profile_ticks`). Peak GiB of each driver from a fresh
-    Simulator. Returns (summary, the warm-up fired history)."""
+    Simulator. A path of PREPARE has its hook applied to each new
+    Simulator first. Returns (summary, the warm-up fired history, (the
+    fired history of the warm-up and timed runs (numpy), for a merged
+    path the rings' occupancy at the start and after the timed runs))."""
     import torch
     from repro_torch.core import Simulator, network
     _, ticks, expect = PATHS[name]
+    prepare = PREPARE.get(name, lambda sim: None)
     P = PROFILE_TICKS
     assert ext.shape[0] >= (GRAPH_REPEATS + 2) * ticks
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sim = Simulator(p, key=0, **kw)              # the default device: CUDA
+    prepare(sim)
+    rings0 = None if sim.state.jring is None else occupancy(sim)
     torch.cuda.synchronize()
     print(f"{name} path: {type(sim.backend).__name__}{tuple(sim.backend)}, "
           f"init {time.perf_counter() - t0:.2f} s, "
@@ -779,12 +866,13 @@ def run_path(name, p, ext, kw):
     print(f"{name} path: {ticks} warm-up ticks through the graphs, chunk "
           f"{sim.chunk}; launches counted at capture {json.dumps(at_capture)} "
           f"({sum(first_s)} captured ticks, {scratch} scratch tick)")
-    us, spans = [], []
+    us, spans, timed = [], [], []
     for rep in range(GRAPH_REPEATS):
         lo = (rep + 1) * ticks
         fired, wall, span, counts = timed_ticks(
             name, "graphs", lambda: sim.run(ext[lo:lo + ticks]), {})
         rate = check_state(name, sim, fired, p, ticks, lo + ticks)
+        timed.append(fired.cpu())
         us.append(wall / ticks * 1e6)
         spans.append(span / ticks * 1e3)
         print(f"{name} path [graphs, run {rep + 1}]: {ticks} ticks in "
@@ -792,6 +880,7 @@ def run_path(name, p, ext, kw):
               f"{spans[-1]:.1f} us/tick), fired rate {rate:.4f} per HCU per "
               f"tick, drops {sim.drops()}")
     lo += ticks
+    rings = None if rings0 is None else (rings0, occupancy(sim))
     replay = profile_replay(name, sim, ext[lo:lo + ticks], expect, spans[-1])
     if set(sim.graphs.captured) != set(first_s):
         fail(f"{name} path: the timed ticks captured a graph")
@@ -813,6 +902,7 @@ def run_path(name, p, ext, kw):
     torch.cuda.reset_peak_memory_stats()
 
     sim = Simulator(p, key=0, **kw)
+    prepare(sim)
     hist = [sim.tick(e) for e in ext[:PER_TICK_WARM]]
     lo, hi = PER_TICK_WARM, PER_TICK_WARM + PER_TICK_TICKS
     more, wall_t, _, counts_t = timed_ticks(
@@ -838,14 +928,24 @@ def run_path(name, p, ext, kw):
             "launches_at_capture": at_capture,
             "launches_per_tick_loop": counts_t, "replay": replay,
             "peak_gib_graphs": peak_graphs, "peak_gib_graphs_warm_up": peak_warm,
-            "peak_gib_per_tick": peak_tick, "per_tick_profile": prof}, warm
+            "peak_gib_per_tick": peak_tick, "per_tick_profile": prof}, warm, \
+        (torch.cat([warm] + timed).numpy(), rings)
+
+
+def occupancy(sim):
+    """Spike times each ring of a merged Simulator holds, (H, C), read
+    back to the host."""
+    from repro_torch.core import merged as M
+    return (sim.state.jring != M.RING_EMPTY).sum(-1).cpu().numpy()
 
 
 def phase_paths(report, tile):
     """Phase 5: every path at human width through the kernels (`run_path`);
     the fused_blocked path with the planes stored in ``tile``, its fired
-    history held against the flat fused path's over the same ticks, and
-    the eager golden model's against the fused path's."""
+    history held against the flat fused path's over the same ticks, the
+    eager golden model's against the fused path's, and merged's over its
+    first MERGED_MATCH_TICKS ticks; the merged paths' fires and overflow
+    flushes per timed tick (`merged_flushes`)."""
     import torch
     from repro_torch.core.layout import BlockedLayout
     from repro_torch.core.params import human_scale
@@ -860,18 +960,161 @@ def phase_paths(report, tile):
     flags["fused_blocked"] = dict(layout=BlockedLayout(p.rows, p.cols, *tile))
     runs = {name: run_path(name, p, ext, flags[name]) for name in PATHS}
     fused = runs["fused"][1]
-    for name in ("fused_blocked", "eager"):
-        b = runs[name][1]
+    for name, n in (("fused_blocked", None), ("eager", None),
+                    ("merged", MERGED_MATCH_TICKS)):
+        b = runs[name][1][:n]
         if not torch.equal(b, fused[:b.shape[0]]):
             fail(f"{name} path: fired history differs from the fused "
                  f"path's in {int((b != fused[:b.shape[0]]).sum())} places")
         print(f"{name} path: fired history equals the fused path's over "
               f"{b.shape[0]} ticks ({int((b >= 0).sum())} spikes)")
+    for name in ("merged", "merged_warm"):
+        b = runs[name][1]
+        print(f"{name} path against the fused path over {b.shape[0]} ticks: "
+              f"fired history differs in {int((b != fused[:b.shape[0]]).sum())}"
+              f" of {b.numel()} places (bit for bit required over the first "
+              f"{MERGED_MATCH_TICKS} of merged)")
+        merged_flushes(name, runs[name])
     for e in report:
         e["launches"] = runs[REPORT_PATH[e["name"]]][0]["replay"][
             "executions"][e["name"]]
     summary = {name: r[0] for name, r in runs.items()}
     print("paths summary:", json.dumps(summary))
+
+
+def phase_checkpoints(dev):
+    """Phase 5b: `Simulator.save` / `load` and `AsyncCheckpointer` on the
+    merged path's full state, and the committed legacy checkpoint, on the
+    card; every check bit for bit."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import AsyncCheckpointer, latest_step
+    from repro_torch.core import Simulator, rng
+    from repro_torch.core.params import human_scale, test_scale
+    base = ROOT / "build"
+    base.mkdir(exist_ok=True)
+    p = human_scale(n_hcu=256)
+    per_hcu = p.rows * p.cols * 20 + p.rows * 16 + p.cols * 8 * 4 + 4096
+    free = shutil.disk_usage(base).free
+    n = min(p.n_hcu, int(0.8 * free // per_hcu))
+    if n < 2:
+        fail(f"checkpoints: {free} bytes free under {base}")
+    cut = "" if n == p.n_hcu else f" (cut from {p.n_hcu}: {free} bytes free)"
+    p = human_scale(n_hcu=n)
+    ext = torch.from_numpy(ext_tensor(p, CKPT_TICKS + 1, seed=1)).cuda()
+    sim = Simulator(p, key=0, merged=True)
+    warm_rings(sim)
+    sim.run(ext[:CKPT_TICKS])
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(sim.state))
+    print(f"checkpoints: human_scale(n_hcu={n}){cut}, merged, warm rings, "
+          f"{CKPT_TICKS} ticks through the graphs; state {nbytes / 1e9:.3f} "
+          f"GB; {free / 1e9:.1f} GB free under {base}")
+    tmp = pathlib.Path(tempfile.mkdtemp(dir=base, prefix="ckpt_"))
+    try:
+        t0 = time.perf_counter()
+        sim.save(str(tmp / "sync"))
+        t_save = time.perf_counter() - t0
+        back = Simulator(p, key=0, merged=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back.load(str(tmp / "sync"))
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        same_state("checkpoints: the loaded state", sim, back)
+        if back.graphs.captured or any(t.device.type != back.device.type
+                                       for t in leaves(back.state)):
+            fail("checkpoints: load kept graphs or left the device")
+        shutil.rmtree(tmp / "sync")
+        f1, f2 = sim.tick(ext[CKPT_TICKS]), back.tick(ext[CKPT_TICKS])
+        if not torch.equal(f1, f2):
+            fail("checkpoints: the tick after the load fires otherwise")
+        same_state("checkpoints: the state one tick after the load", sim, back)
+        ck = AsyncCheckpointer(str(tmp / "async"))
+        tree = sim.state._replace(base_key=rng.key_data(sim.state.base_key))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save_async(int(sim.state.t), tree)
+        t_snap = time.perf_counter() - t0
+        ck.wait()
+        t_write = time.perf_counter() - t0 - t_snap
+        if latest_step(str(tmp / "async")) != int(sim.state.t):
+            fail("checkpoints: the async save left no complete step")
+        del back
+        back = Simulator(p, key=0, merged=True).load(str(tmp / "async"))
+        same_state("checkpoints: the async checkpoint", sim, back)
+        del back
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gbs = lambda t: f"{t:.3f} s, {nbytes / t / 1e9:.2f} GB/s"
+    print(f"checkpoints: save {gbs(t_save)}; load {gbs(t_load)}; save_async "
+          f"snapshot {gbs(t_snap)}, background write {gbs(t_write)}; every "
+          f"leaf bit for bit after the load and the async save, and the next "
+          f"tick fires as the saved state's ({int((f1 >= 0).sum())} spikes)")
+    del sim
+    torch.cuda.empty_cache()
+
+    q = test_scale(n_hcu=2, rows=32, cols=16)
+    d = np.load(ROOT / "tests" / "fixtures" / "legacy_ckpt_ext.npz")
+    ext = torch.from_numpy(d["ext"]).cuda()
+    legacy = Simulator(q, key=0).load(str(ROOT / "tests" / "fixtures" /
+                                          "legacy_ckpt"))
+    if int(legacy.state.t) != 10 or any(t.device.type != legacy.device.type
+                                        for t in leaves(legacy.state)):
+        fail("checkpoints: the legacy checkpoint restored wrongly")
+    fired = legacy.run(ext[10:]).cpu()
+    ref = Simulator(q, key=0)
+    want = ref.run(ext).cpu()
+    if not (np.array_equal(want[:10].numpy(), d["fired_prefix"])
+            and torch.equal(fired, want[10:])):
+        fail("checkpoints: the legacy checkpoint continues otherwise")
+    print(f"checkpoints: the legacy (H, R, C) checkpoint restored at t=10 "
+          f"and continued {fired.shape[0]} ticks as the uninterrupted run "
+          f"({int((fired >= 0).sum())} spikes)")
+
+
+def leaves(tree):
+    """The tensor leaves of a (nested) NamedTuple, in field order."""
+    for v in tree:
+        if isinstance(v, tuple):
+            yield from leaves(v)
+        elif v is not None:
+            yield v
+
+
+def same_state(what, a, b):
+    """Every leaf of two Simulators' states bit for bit."""
+    import torch
+    for x, y in zip(leaves(a.state), leaves(b.state), strict=True):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            fail(f"{what} differs from the saved one")
+
+
+def merged_flushes(name, run):
+    """Fires and overflow flushes per timed tick of a merged path, from its
+    fired history (`ring_flushes`); the rule's ring occupancy after the
+    timed runs must equal the rings read back then. Adds them to the
+    path's summary."""
+    summary, _, (fired, (start, end)) = run
+    occ = start.copy()
+    per_tick = ring_flushes(fired, occ)
+    if not np.array_equal(occ, end):
+        fail(f"{name} path: the flush rule replayed from the fired history "
+             f"leaves other ring occupancies than the rings hold")
+    ticks = PATHS[name][1]
+    timed = slice(ticks, fired.shape[0])
+    fires = int((fired[timed] >= 0).sum())
+    flushes = int(per_tick[timed].sum())
+    n = fired.shape[0] - ticks
+    summary.update(fires_per_tick=fires / n, flushes_per_tick=flushes / n,
+                   flushes_warm_up=int(per_tick[:ticks].sum()))
+    print(f"{name} path: {n} timed ticks, {fires / n:.2f} fires and "
+          f"{flushes / n:.3f} overflow flushes per tick ({flushes} of "
+          f"{fires} fires; {int(per_tick[:ticks].sum())} flushes in the "
+          f"{ticks} warm-up ticks); host us/tick through the graphs "
+          + ", ".join(f"{u:.1f}" for u in summary["us_per_tick_graphs"])
+          + f", per-tick loop {summary['us_per_tick_per_tick']:.1f}")
 
 
 def profile_replay(name, sim, ext, expect, unprofiled):
@@ -948,7 +1191,11 @@ PHASES = (("repro_torch.core.engine", "worklist_lazy_rows",
           ("repro_torch.core.hcu", "row_updates", ("row_update",)),
           ("repro_torch.core.engine", "_column_worklist", ("fused_col_update",)),
           ("repro_torch.core.engine", "column_updates_batched", ("col_update",)),
-          ("repro_torch.core.reference", "eager_tick", ()))
+          ("repro_torch.core.reference", "eager_tick", ()),
+          ("repro_torch.core.engine", "worklist_merged_rows", ()),
+          ("repro_torch.core.hcu", "periodic_update", ()),
+          ("repro_torch.core.merged", "overflow_flush", ()),
+          ("repro_torch.core.worklist", "patch_cells", ()))
 
 
 def profile_ticks(name, sim, ext, kernels):
@@ -1361,12 +1608,21 @@ def main():
 
     from repro_torch.core.params import human_scale
     dev = torch.device("cuda")
+    done = lambda phase: print(f"{phase}: done {time.perf_counter() - t0:.1f} "
+                               f"s after the build began")
     report, tile = phase_kernels(human_scale(n_hcu=256), dev)
+    done("kernels")
     phase_fixtures(dev)
+    done("fixtures")
     phase_paths(report, tile)
+    done("paths")
+    phase_checkpoints(dev)
+    done("checkpoints")
     flash = phase_flash(dev)
+    done("flash")
     phase_lm_fixture(dev)
     flash["launches"] = phase_lm(dev, smi)
+    done("lm")
     report.append(flash)
     print("the BCPNN kernels' library_ms is null: no single PyTorch call "
           "computes a cell-math pass; flash_attention's is "

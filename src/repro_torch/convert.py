@@ -6,8 +6,9 @@ of one package continues in the other, and how the tests start both from
 the same state. The array names are those that
 `tests/fixtures/capture_head.py:state_arrays` writes (``hcus_<field>``
 with ij planes (H*R, C) and i-vectors (H*R,), ``delay_rows``,
-``delay_count``, ``t``, ``drops_in``, ``drops_fire``), plus ``base_key``
-(two uint32 words) and ``drops_route``; the connectivity arrays are
+``delay_count``, ``t``, ``drops_in``, ``drops_fire``, and ``jring`` for a
+merged state), plus ``base_key`` (two uint32 words) and ``drops_route``;
+the connectivity arrays are
 ``conn_dest_hcu``, ``conn_dest_row`` and ``conn_delay``.
 
 LM parameters travel as the JAX package's parameter tree flattened to
@@ -25,6 +26,7 @@ import torch
 from repro_torch.core import hcu as H
 from repro_torch.core import layout as L
 from repro_torch.core import network as N
+from repro_torch.core import rng
 from repro_torch.core.params import BCPNNParams
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.transformer import Model, build_stack_spec
@@ -36,8 +38,8 @@ def state_from_numpy(arrays, p: BCPNNParams, device,
                      layout=None) -> N.NetworkState:
     """NetworkState from the JAX package's leaves as numpy arrays (a dict or
     an npz file), in flat order; its ij planes are stored in ``layout``
-    (None: flat). ``drops_route`` defaults to 0 when absent. The flat
-    shapes are checked against ``p``."""
+    (None: flat). ``drops_route`` defaults to 0 when absent, ``jring`` to
+    None (a lazy state). The flat shapes are checked against ``p``."""
     n = np.asarray(arrays["delay_rows"]).shape[0]
     shapes = {f: (n * p.rows, p.cols) for f in ("zij", "eij", "pij", "wij", "tij")}
     shapes.update({f: (n * p.rows,) for f in ("zi", "ei", "pi", "ti")})
@@ -53,6 +55,7 @@ def state_from_numpy(arrays, p: BCPNNParams, device,
                                       device=device)
     route = arrays["drops_route"] if "drops_route" in arrays else 0
     return N.NetworkState(
+        jring=tens("jring", torch.int32) if "jring" in arrays else None,
         hcus=L.store_hcus(H.HCUState(**leaves), layout),
         delay_rows=tens("delay_rows", torch.int32),
         delay_count=tens("delay_count", torch.int32),
@@ -76,7 +79,9 @@ def state_to_numpy(state: N.NetworkState, layout=None) -> dict:
     out["delay_count"] = state.delay_count.cpu().numpy()
     for k in _SCALARS:
         out[k] = getattr(state, k).cpu().numpy()
-    out["base_key"] = state.base_key.cpu().numpy().astype(np.uint32)
+    out["base_key"] = rng.key_data(state.base_key)
+    if state.jring is not None:
+        out["jring"] = state.jring.cpu().numpy()
     return out
 
 

@@ -18,9 +18,16 @@ and only the plane update differs by backend:
   * `DenseBackend` — toy sizes: every HCU at once on the batched
     (H, R, C) view of the flat planes; mode "lazy" (one `ops.row_update`
     launch over the gathered (H, A, C) row blocks, then the same column
-    step) or "eager" (the dense golden model, `reference.eager_tick`).
-    Under a blocked layout the driver converts the planes to flat and back
-    once per call (`carry_in` / `carry_out`), as the JAX package does.
+    step), "eager" (the dense golden model, `reference.eager_tick`) or
+    "merged" (`merged.hcu_tick_merged`). Under a blocked layout the driver
+    converts the planes to flat and back once per call (`carry_in` /
+    `carry_out`), as the JAX package does.
+
+Merged mode (the paper's eBrainIII ring-deferred columns,
+`repro_torch.core.merged`) runs on either backend and launches none of
+the hand-written kernels, as the JAX package's merged path reaches no
+Pallas kernel: its row phase and overflow flush are plain torch ops
+(`worklist_merged_rows`, `merged.overflow_flush`).
 
 `select_backend` picks by the JAX package's size guard (`hcu.use_worklist`);
 the flags force either. Every combination gives the trajectory of the JAX
@@ -49,6 +56,7 @@ import torch
 
 from repro_torch.core import hcu as H
 from repro_torch.core import layout as L
+from repro_torch.core import merged as M
 from repro_torch.core import network as N
 from repro_torch.core import reference
 from repro_torch.core import rng
@@ -217,6 +225,51 @@ def worklist_col_dispatch(fused_cols: bool, h_idx, j_idx, t,
     return lambda hc: column_updates_batched(hc, h_idx, j_idx, t, p, layout)
 
 
+def worklist_merged_rows(hcus: H.HCUState, jring, rows, t, p: BCPNNParams,
+                         layout=None):
+    """Merged worklist row phase on the stored planes (``layout``, None:
+    flat): dedup and the worklist build, then every slot's row gathered
+    through the layout's index map (`row_index`), `merged_row_math`
+    on the (H, A, C) blocks against each HCU's ring (jring (H, C, M)), and
+    the live rows and i-vector cells written back in place (padding and
+    duplicate slots write their cells' old values, `hcu.put_drop`).
+    Returns (hcus', w_rows (H, A, C), common): padding slots' weight rows
+    are 0, as the unfused lazy phase's are."""
+    c = _row_worklist_common(hcus, rows, t, p)
+    hcus = c["hcus"]
+    n, A = c["n"], c["A"]
+    R, C = p.rows, p.cols
+    lay = L.as_layout(layout, R, C)
+    valid = c["rows_u"] < R                                      # (H, A)
+    cell = lay.row_index(c["g_safe"])                            # (H, A, C)
+    planes = tuple(getattr(hcus, f).view(-1) for f in ("zij", "eij", "pij",
+                                                       "wij", "tij"))
+    old = tuple(pl[cell] for pl in planes)
+    zi_g, _, _, ti_g = c["iv_old"]
+    z1, e1, p1, w1 = M.merged_row_math(
+        old[0], old[1], old[2], old[4], jring, zi_g, ti_g, c["counts"],
+        hcus.zj, c["zep_i"].p, hcus.pj, t, p)
+    redirect = H.drop_redirect(cell, valid)
+    for pl, v_new, v_old in zip(planes, (z1, e1, p1, w1, t), old):
+        H.put_drop(pl, v_new, v_old, redirect)
+    H.write_ivecs(hcus, H.drop_redirect(c["g_safe"], valid), t,
+                  (c["zi_new"], c["zep_i"].e, c["zep_i"].p), c["iv_old"])
+    return hcus, torch.where(valid[..., None], w1, 0.0), c
+
+
+def _merged_worklist_update(hcus: H.HCUState, jring, rows, t, keys,
+                            p: BCPNNParams, layout=None):
+    """The worklist twin of the batched `merged.hcu_tick_merged`: merged
+    row phase (`worklist_merged_rows`), the WTA, then `merged.merged_tail`
+    (overflow flush, same-tick patch, ring push, Zj bump), every plane
+    access in the stored layout. Returns (hcus', jring', fired)."""
+    hcus, w_rows, c = worklist_merged_rows(hcus, jring, rows, t, p, layout)
+    hcus, fired = H.periodic_update(hcus, w_rows, c["counts"], keys, p)
+    hcus, jring = M.merged_tail(hcus, jring, fired, c["rows_u"], c["zi_new"],
+                                t, p, layout)
+    return hcus, jring, fired
+
+
 # ---------------------------------------------------------------------------
 # the TickBackend protocol and its two implementations
 # ---------------------------------------------------------------------------
@@ -242,12 +295,12 @@ class DenseBackend(NamedTuple):
     the flat planes (a zero-copy reshape, `layout.batched_state`).
 
     mode: "lazy" (timestamped row and column updates: `hcu.hcu_tick_pre`
-    and `column_updates_batched`) or "eager" (the dense golden model,
-    `reference.eager_tick`). The JAX package's "merged" mode is not ported
-    (ROADMAP queue A item 3). layout: the planes' stored layout (None:
-    flat); a blocked one is converted to flat and back once per driver
-    call (`carry_in` / `carry_out`, pure data movement), so the per-tick
-    dense step is the flat one."""
+    and `column_updates_batched`), "eager" (the dense golden model,
+    `reference.eager_tick`) or "merged" (eBrainIII ring-deferred columns,
+    `merged.hcu_tick_merged`, on the state's rings `jring`). layout: the
+    planes' stored layout (None: flat); a blocked one is converted to flat
+    and back once per driver call (`carry_in` / `carry_out`, pure data
+    movement), so the per-tick dense step is the flat one."""
     mode: str = "lazy"
     layout: L.BlockedLayout | None = None
 
@@ -265,25 +318,31 @@ class DenseBackend(NamedTuple):
         if self.mode == "eager":
             hb, fired = reference.eager_tick(hb, rows, t, keys, p)
             h_idx, j_idx, n_drop = N.select_fired(fired, cap)
+        elif self.mode == "merged":
+            hb, jring, fired = M.hcu_tick_merged(hb, state.jring, rows, t,
+                                                 keys, p)
+            state = state._replace(jring=jring)
+            h_idx, j_idx, n_drop = N.select_fired(fired, cap)
         elif self.mode == "lazy":
             hb, fired = H.hcu_tick_pre(hb, rows, t, keys, p)
             h_idx, j_idx, n_drop = N.select_fired(fired, cap)
             hb = column_updates_batched(hb, h_idx, j_idx, t, p)
         else:
-            raise NotImplementedError(
-                f"dense mode {self.mode!r} is not ported to PyTorch yet "
-                "(merged mode: ROADMAP queue A item 3)")
+            raise ValueError(f"unknown dense mode {self.mode!r}")
         return (state._replace(hcus=L.flat_state(hb)), fired, h_idx, j_idx,
                 n_drop)
 
 
 class WorklistBackend(NamedTuple):
-    """Network-global worklist plane updates, lazy mode (the JAX package's
-    `WorklistBackend(mode="lazy")`). ``fused`` / ``fused_cols`` pick the
-    fused row / column kernel or the unfused steps; all four combinations
-    give the same bits. ``layout``: the planes' stored layout (None:
-    flat); every step addresses the blocked tiles directly, so the carry
-    is the stored state as it is."""
+    """Network-global worklist plane updates (the JAX package's
+    `WorklistBackend`). mode: "lazy" or "merged" (`_merged_worklist_update`,
+    on the state's rings `jring`). ``fused`` / ``fused_cols`` pick the
+    lazy mode's fused row / column kernel or the unfused steps; all four
+    combinations give the same bits; merged mode runs no kernel, so they
+    are inert there, as in the JAX package. ``layout``: the planes' stored
+    layout (None: flat); every step addresses the blocked tiles directly,
+    so the carry is the stored state as it is."""
+    mode: str = "lazy"
     fused: bool = True
     fused_cols: bool = True
     layout: L.BlockedLayout | None = None
@@ -298,6 +357,12 @@ class WorklistBackend(NamedTuple):
         """Row phase, WTA and column phase of one tick. Returns
         (state', fired, h_idx, j_idx, n_dropped)."""
         n = state.delay_rows.shape[0]
+        if self.mode == "merged":
+            hcus, jring, fired = _merged_worklist_update(
+                state.hcus, state.jring, rows, t, keys, p, self.layout)
+            h_idx, j_idx, n_drop = N.select_fired(fired, cap)
+            return (state._replace(hcus=hcus, jring=jring), fired, h_idx,
+                    j_idx, n_drop)
         hcus, w_rows, c = worklist_lazy_rows(state.hcus, rows, t, p,
                                              fused=self.fused,
                                              layout=self.layout)
@@ -319,19 +384,17 @@ def select_backend(p: BCPNNParams, *, eager: bool = False,
     worklist backend's row and column kernels. ``layout`` is resolved by
     `layout.resolve_layout` (None / "flat" / "blocked" / "blocked_tpu" /
     a layout instance; anything else raises ValueError) and becomes the
-    backend's field. Merged mode raises, naming the ROADMAP item that
-    ports it."""
-    if merged:
-        raise NotImplementedError("merged mode is not ported to PyTorch yet "
-                                  "(ROADMAP queue A item 3)")
+    backend's field. ``merged`` takes the backend the size guard picks in
+    mode "merged"."""
     layout = L.resolve_layout(layout, p)
     if eager:
         return DenseBackend(mode="eager", layout=layout)
+    mode = "merged" if merged else "lazy"
     if H.use_worklist(p, worklist):
-        return WorklistBackend(fused=H.use_fused_rows(p, fused),
+        return WorklistBackend(mode=mode, fused=H.use_fused_rows(p, fused),
                                fused_cols=H.use_fused_cols(p, fused_cols),
                                layout=layout)
-    return DenseBackend(mode="lazy", layout=layout)
+    return DenseBackend(mode=mode, layout=layout)
 
 
 def tick(state: N.NetworkState, conn: N.Connectivity, ext_rows,
@@ -388,13 +451,18 @@ class Simulator:
     every run; `hcus()` gives the batched (H, R, C) view in flat order and
     `flushed()` a fully current copy. The connectivity and the RNG stream
     are those of the JAX package's `Simulator` for the same key.
+    ``merged=True`` runs the paper's eBrainIII ring-deferred columns
+    (`repro_torch.core.merged`) on the backend the size guard picks; its
+    state carries the per-column spike rings ``jring``. `save` / `load`
+    checkpoint the held state in the JAX package's on-disk format
+    (`repro_torch.checkpoint`), so either package restores the other's.
 
     `run` takes ``chunk`` ticks at a time (default 128, as in the JAX
     package): on CUDA one CUDA-graph replay a chunk, the graphs captured
     on the held state at their first use and kept with it in ``graphs``
     (`network.ChunkGraphs`, whose ``captured`` maps each chunk length to
-    its graph). `reset`, `tick` and `run_host` rebind the state and drop
-    them.
+    its graph). `reset`, `load`, `tick` and `run_host` rebind the state
+    and drop them.
     """
 
     def __init__(self, p: BCPNNParams, key=0, *, n_hcu: int | None = None,
@@ -403,9 +471,6 @@ class Simulator:
                  fused_cols: bool | None = None, cap_fire: int | None = None,
                  chunk: int = 128, layout=None):
         self.device = resolve_device(device)
-        # raises, before anything is allocated, for a mode not ported yet
-        select_backend(p, eager=eager, merged=merged, worklist=worklist,
-                       fused=fused, fused_cols=fused_cols, layout=layout)
         self.p = p
         self.n_hcu = n_hcu or p.n_hcu
         self.merged, self.eager = merged, eager
@@ -441,7 +506,7 @@ class Simulator:
             self.conn = N.make_connectivity(
                 self.p, rng.fold_in(self._key, 1), self.n_hcu)
         self.state = N.init_network(self.p, self._key, self.n_hcu,
-                                    layout=self.layout)
+                                    merged=self.merged, layout=self.layout)
         return self
 
     def tick(self, ext_rows):
@@ -482,13 +547,47 @@ class Simulator:
         raise NotImplementedError("the sharded runtime is not ported to "
                                   "PyTorch yet (ROADMAP queue A item 7)")
 
-    def save(self, *args, **kwargs):
-        raise NotImplementedError("checkpoints are not ported to PyTorch yet "
-                                  "(ROADMAP queue A item 4)")
+    def save(self, ckpt_dir: str, step: int | None = None) -> str:
+        """Checkpoint the held state (`checkpoint.save`: atomic, numpy
+        leaves in the JAX package's format and dtypes, the key as two
+        uint32 words), at step ``step`` (default: the current time). The
+        manifest records the plane layout (`layout.layout_tag`), so a load
+        under another layout converts. Returns the step directory."""
+        from repro_torch.checkpoint import save as ckpt_save
+        st = self.state
+        step = int(st.t) if step is None else step
+        return ckpt_save(ckpt_dir, step, st._replace(
+            base_key=rng.key_data(st.base_key)),
+            extra_meta={"layout": L.layout_tag(self.layout)})
 
-    def load(self, *args, **kwargs):
-        raise NotImplementedError("checkpoints are not ported to PyTorch yet "
-                                  "(ROADMAP queue A item 4)")
+    def load(self, ckpt_dir: str, step: int | None = None) -> "Simulator":
+        """Restore the latest (or the given) step into this Simulator, on
+        its device, and drop the captured chunks (as `reset` does: graphs
+        are keyed by the held tensors). Checkpoints of the JAX package
+        load as they are. Two shims, as in the JAX package: the legacy
+        (H, R, C) layout and the missing trailing ``drops_route``
+        (`checkpoint.restore_network`); and a checkpoint saved under one
+        plane layout restores under any other (the manifest's layout tag,
+        absent meaning flat, then `layout.convert_hcus`, pure data
+        movement)."""
+        from repro_torch.checkpoint import (latest_step, manifest,
+                                            restore_network)
+        if step is None:
+            step = latest_step(ckpt_dir)
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+        meta = manifest(ckpt_dir, step) or {}
+        saved = L.layout_from_tag(meta.get("layout", "flat"), self.p)
+        self.graphs.clear()
+        if L.layout_tag(saved) == L.layout_tag(self.layout):
+            self.state = restore_network(ckpt_dir, step, self.state)
+        else:
+            tmpl = self.state._replace(
+                hcus=L.convert_hcus(self.state.hcus, self.layout, saved))
+            st = restore_network(ckpt_dir, step, tmpl)
+            self.state = st._replace(
+                hcus=L.convert_hcus(st.hcus, saved, self.layout))
+        return self
 
     def drops(self) -> dict:
         """Cumulative spike-drop counters {'in', 'fire', 'route'} (reads
@@ -503,5 +602,9 @@ class Simulator:
 
     def flushed(self) -> H.HCUState:
         """Batched HCU state with every lazy trace brought current (new
-        tensors)."""
+        tensors); a merged state's rings are applied first
+        (`merged.flush_merged`)."""
+        if self.merged:
+            return M.flush_merged(self.hcus(), self.state.jring, self.state.t,
+                                  self.p)
         return H.flush(self.hcus(), self.state.t, self.p)

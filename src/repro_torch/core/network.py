@@ -41,6 +41,7 @@ import torch
 
 from repro_torch.core import hcu as H
 from repro_torch.core import layout as L
+from repro_torch.core import merged as M
 from repro_torch.core import rng
 from repro_torch.core.params import BCPNNParams
 
@@ -60,7 +61,7 @@ class NetworkState(NamedTuple):
     drops_in: torch.Tensor   # () int32 — delay-queue overflow drops
     drops_fire: torch.Tensor  # () int32 — fired-batch overflow drops
     base_key: torch.Tensor   # (2,) threefry key (repro_torch.core.rng)
-    jring: torch.Tensor | None = None   # merged-mode rings (not ported yet)
+    jring: torch.Tensor | None = None   # (H, C, M) merged-mode spike rings
     # () int32 — inter-device route-capacity drops; always 0 on one device.
     # LAST field, as in the JAX package.
     drops_route: torch.Tensor | None = None
@@ -98,14 +99,16 @@ def hcu_view(state: NetworkState, layout=None) -> H.HCUState:
 
 
 def init_network(p: BCPNNParams, key, n_hcu: int | None = None,
-                 layout=None) -> NetworkState:
+                 merged: bool = False, layout=None) -> NetworkState:
     """The initial network state, its ij planes stored in ``layout`` (None:
-    flat; else a resolved `layout.BlockedLayout`)."""
+    flat; else a resolved `layout.BlockedLayout`); ``merged`` adds the
+    empty (H, C, RING_DEPTH) int32 spike rings of merged mode."""
     n = n_hcu or p.n_hcu
     dev = key.device
     D, A = p.max_delay, p.active_queue
     i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
     return NetworkState(
+        jring=M.init_ring(p, n, dev) if merged else None,
         hcus=L.store_hcus(H.init_hcu_batch(p, n, dev), layout),
         delay_rows=torch.full((n, D, A), p.rows, dtype=torch.int32, device=dev),
         delay_count=torch.zeros((n, D), dtype=torch.int32, device=dev),
@@ -328,7 +331,8 @@ def _load_kernels(p: BCPNNParams, be, cap_fire, A_ext: int,
     stream.wait_stream(torch.cuda.current_stream(stream.device))
     with torch.cuda.stream(stream):
         key = rng.PRNGKey(0, stream.device)
-        scratch = init_network(p, key, 2, layout=be.layout)
+        scratch = init_network(p, key, 2, merged=be.mode == "merged",
+                               layout=be.layout)
         ext = torch.full((1, 2, A_ext), p.rows, dtype=torch.int32,
                          device=stream.device)
         _run_ticks(scratch, make_connectivity(p, key, 2), ext, p, be,

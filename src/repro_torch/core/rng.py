@@ -22,6 +22,7 @@ Nothing here reads or advances a global generator.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _M = 0xFFFFFFFF
@@ -66,6 +67,12 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
     if not -(1 << 31) <= seed < (1 << 31):
         raise ValueError(f"seed must fit int32, got {seed}")
     return torch.tensor([0, seed & _M], dtype=torch.int64, device=device)
+
+
+def key_data(key) -> np.ndarray:
+    """The key's two words as a numpy uint32 array: the JAX package's raw
+    legacy key, the form a checkpoint stores (a copy on the host)."""
+    return key.cpu().numpy().astype(np.uint32)
 
 
 def fold_in(key, data):

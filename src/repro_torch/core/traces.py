@@ -55,26 +55,34 @@ def make_coeffs(tau_z: float, tau_e: float, tau_p: float) -> DecayCoeffs:
     )
 
 
-def decay_zep(zep: ZEP, dt, k: DecayCoeffs) -> ZEP:
+def decay_zep(zep: ZEP, dt, k: DecayCoeffs, exp=torch.exp) -> ZEP:
     """Propagate a ZEP triplet across a silent gap of ``dt`` ms (closed form).
 
     ``dt`` is a float32 tensor broadcastable with the traces, or a Python
     number. A number becomes a float32 scalar on the CPU: torch applies a
     zero-dimensional CPU tensor to CUDA tensors as a scalar, so the decay
     factors are computed in float32 without a copy to the device.
-    dt == 0 is the exact identity.
+    dt == 0 is the exact identity. ``exp`` computes the three decay
+    factors (`exp_rounded` for merged mode's ring segments).
     """
     if not torch.is_tensor(dt):
         dt = torch.tensor(dt, dtype=torch.float32)
-    ez = torch.exp(-dt * k.inv_tau_z)
-    ee = torch.exp(-dt * k.inv_tau_e)
-    ep = torch.exp(-dt * k.inv_tau_p)
+    ez = exp(-dt * k.inv_tau_z)
+    ee = exp(-dt * k.inv_tau_e)
+    ep = exp(-dt * k.inv_tau_p)
     z0, e0, p0 = zep
     e1 = e0 * ee + z0 * (ez - ee) * k.c_ze
     p1 = (p0 * ep
           + (e0 - z0 * k.c_ze) * (ee - ep) * k.c_ep
           + z0 * k.c_ze * (ez - ep) * k.c_zp)
     return ZEP(z0 * ez, e1, p1)
+
+
+def exp_rounded(x: torch.Tensor) -> torch.Tensor:
+    """exp of a float32 tensor computed in float64 and rounded once: the
+    correctly rounded value but for rare near-ties, so the same bits on
+    the CPU and on CUDA, whose float32 expf is up to 2 ulp off."""
+    return torch.exp(x.double()).to(x.dtype)
 
 
 def bayesian_weight(p_ij, p_i, p_j, eps: float):

@@ -1,8 +1,8 @@
 """Rules of the PyTorch port: it imports neither JAX nor the JAX package,
 it runs on CUDA unless the caller asks for the CPU (the BCPNN `Simulator`,
 the LM `Model` and `ServingEngine`), its flags select the backends the JAX
-package's flags select, and every part that is not ported yet raises
-instead of running something else."""
+package's flags select, the Simulator saves and loads, and every part that
+is not ported yet raises instead of running something else."""
 import ast
 import pathlib
 
@@ -95,15 +95,6 @@ def test_dense_param_count_matches_the_analytic_count(arch):
     assert cfg.param_count() == cfg.n_layers * per_layer + head + D
 
 
-@pytest.mark.parametrize("kw", [dict(merged=True)],
-                         ids=lambda kw: next(iter(kw)))
-def test_unported_backends_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        select_backend(tiny_scale(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Simulator(tiny_scale(), device="cpu", **kw)
-
-
 @pytest.mark.parametrize("spec", ["tiled", "blocked_gpu", 4])
 def test_unknown_layout_raises(spec):
     """A layout spec that `layout.resolve_layout` does not know raises
@@ -143,27 +134,54 @@ TILE84 = BlockedLayout(LARGE.rows, LARGE.cols, 8, 4)
      DenseBackend(mode="lazy", layout=TILE84)),
     (SMALL, dict(layout="blocked", eager=True), DenseBackend(
         mode="eager", layout=BlockedLayout(SMALL.rows, SMALL.cols, 8, 4))),
+    (SMALL, dict(merged=True), DenseBackend(mode="merged")),
+    (LARGE, dict(merged=True), WorklistBackend(mode="merged", fused=True,
+                                               fused_cols=True)),
+    (SMALL, dict(merged=True, worklist=True), WorklistBackend(mode="merged")),
+    (LARGE, dict(merged=True, layout="blocked"),
+     WorklistBackend(mode="merged", layout=TILE84)),
 ], ids=["eager", "eager_large", "worklist", "fused", "fused_cols",
         "small_default", "small_worklist", "small_unfused", "rodent_default",
         "human_default", "layout", "layout_instance", "layout_tpu",
         "layout_flat", "layout_flat_instance", "layout_dense",
-        "layout_eager"])
+        "layout_eager", "merged", "merged_large", "merged_worklist",
+        "merged_blocked"])
 def test_select_backend(p, kw, want):
     """The JAX package's selection: eager is dense; otherwise the size
     guard R*C > 65536 takes the worklist backend unless `worklist=`
-    forces either; `fused` / `fused_cols` pick its kernels; the layout
-    spec is resolved once (`"blocked"`: the (8, 4) tile) and becomes the
-    backend's field."""
+    forces either, in mode "merged" under `merged=True`; `fused` /
+    `fused_cols` pick its kernels; the layout spec is resolved once
+    (`"blocked"`: the (8, 4) tile) and becomes the backend's field."""
     got = select_backend(p, **kw)
     assert type(got) is type(want) and got == want
     assert Simulator(p, n_hcu=2, device="cpu", **kw).backend == want
 
 
-@pytest.mark.parametrize("method", ["run_sharded", "save", "load"])
+@pytest.mark.parametrize("method", ["run_sharded"])
 def test_unported_simulator_methods_raise(method):
     sim = Simulator(tiny_scale(4, 64, 16), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 7"):
         getattr(sim, method)("ckpt")
+
+
+@pytest.mark.parametrize("merged", [False, True], ids=["lazy", "merged"])
+def test_simulator_save_load_round_trip(tmp_path, merged):
+    """`save` and `load` work on the CPU: a fresh Simulator restores every
+    leaf bit for bit (the rings of a merged state included) and its next
+    ticks fire as the saved one's."""
+    p = tiny_scale(4, 64, 16)
+    ext = torch.full((6, 4, 8), p.rows, dtype=torch.int32)
+    ext[:, :, 0] = torch.arange(6)[:, None] * 7 % p.rows
+    sim = Simulator(p, device="cpu", merged=merged)
+    sim.run(ext[:3])
+    sim.save(str(tmp_path / "ckpt"))
+    back = Simulator(p, device="cpu", merged=merged).load(
+        str(tmp_path / "ckpt"))
+    assert (back.state.jring is not None) == merged
+    for f, a, b in zip(sim.state._fields, sim.state, back.state):
+        for x, y in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
+            assert (x is None and y is None) or torch.equal(x, y), f
+    assert torch.equal(sim.run(ext[3:]), back.run(ext[3:]))
 
 
 @pytest.mark.parametrize("cached", [True, False], ids=["cache", "no_cache"])
