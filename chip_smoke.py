@@ -135,7 +135,49 @@ toolkit. Phases, in order; any failure exits non-zero:
                per prefill wave, the flash kernel's share of a prefill's
                device time (torch.profiler), ms per decode step, tokens/s
                and peak GiB.
-  8. report  — one JSON line of the kernels, then the last line
+  8. recall  — resilience, the associative-memory protocol and recall
+               serving (`repro_torch.runtime`, `repro_torch.experiments`,
+               `repro_torch.launch.serve_bcpnn`):
+               8a. tests/fixtures/assoc_serve_small.npz (the JAX package's,
+                   tests/fixtures/capture_assoc.py) on the card through the
+                   dense backend's kernels: `train_assoc` at
+                   `assoc_params()` (3 patterns, 10 reps) gives its
+                   attractor, `recall_accuracy` its (correct, total) plain,
+                   after `sram_loss` and after `sram_loss` plus a plane
+                   wipe, and the toy server (`test_scale(4, 48, 8)`, 3
+                   lanes of 5 ticks) its sessions' fired trajectories,
+                   statuses, ticks, winners and drops — all exactly.
+               8b. `inject_retention_faults` at rate 1e-3 on a human-width
+                   state of one HCU, all five planes, each mode: bit for
+                   bit the same call on the CPU; the changed bits within 5
+                   sigma of their binomial expectation; then 10 ticks on
+                   the corrupted planes.
+               8c. `ResilientRunner` on human_scale(256) (H cut only if the
+                   disk under build/ holds less than four checkpoints),
+                   phase 5's input, 256 ticks in 64-tick chunks,
+                   save_every=1, crashes before chunks 1 and 3: the fired
+                   history bit for bit an uninterrupted `Simulator.run`'s,
+                   2 restarts, the graphs captured before the restores the
+                   ones replayed after; each restore's seconds and the
+                   health report. The checkpoints are removed afterwards.
+               8d. `BCPNNRecallServer(slots=8, queue_capacity=32,
+                   step_ticks=12)` at human width (256 HCUs, the serving
+                   benchmark's dynamics, `cap_fire=256`) on a Simulator
+                   trained by `train_assoc`: 48 sessions of budget 48, each
+                   a 0.6 partial cue of a trained pattern, paced against
+                   the queue. The fused row and column kernels launch once
+                   a lane-tick at the first step's captures and nothing
+                   else does; no step after the first captures; the first
+                   two sessions to finish, re-run alone through
+                   `Simulator.run(chunk=12)` from the template, equal
+                   their lanes bit for bit (fired history and every leaf).
+                   Prints qps, p50 / p95 service and sojourn ms, the
+                   statuses, ms per step and per lane-tick, graph nodes a
+                   step, peak GiB, the health verdict and drops, and the
+                   served sessions' recall beside chance.
+  9. report  — one JSON line of the kernels (with each BCPNN kernel's
+               launches on the phase 8 paths, counted at capture, under
+               ``launches_by_path``), then the last line
                {"ok": true, "device": {...}}.
 
 It imports the port only (never JAX or the JAX package) and exits non-zero
@@ -1577,6 +1619,496 @@ def phase_lm(dev, smi):
     return counts["flash_attention"]
 
 
+# ---------------------------------------------------------------------------
+# phase 8: resilience, the associative-memory protocol and recall serving
+# ---------------------------------------------------------------------------
+
+ASSOC_REPS = 10               # train_assoc's presentations of each pattern
+RETENTION_HCUS = 1            # human-width HCUs of phase 8b (CPU-checked)
+RETENTION_RATE = 1e-3
+RETENTION_TICKS = 10
+RESILIENT_TICKS = 256         # phase 8c: 4 chunks of 64 ticks
+RESILIENT_CHUNK = 64
+RESILIENT_CRASHES = (1, 3)    # chunks with a crash before their first try
+SERVE_SLOTS, SERVE_QUEUE, SERVE_STEP = 8, 32, 12
+SERVE_SESSIONS, SERVE_BUDGET, SERVE_CUE = 48, 48, 0.6
+SERVE_CHECKED = 2             # served sessions re-run solo, every leaf
+BCPNN_KERNELS = ("fused_row_update", "fused_col_update",
+                 "worklist_row_update", "row_update", "col_update")
+
+
+def wipe_planes(state, p):
+    """Every ij plane back to its init values (the fixture's plane wipe)."""
+    import torch
+    h = state.hcus
+    return state._replace(hcus=h._replace(
+        zij=torch.zeros_like(h.zij), eij=torch.zeros_like(h.eij),
+        pij=torch.full_like(h.pij, p.p_init * p.p_init),
+        wij=torch.zeros_like(h.wij), tij=torch.zeros_like(h.tij)))
+
+
+def bcpnn_counts():
+    counts = read_launches()
+    return {k: counts[k] for k in BCPNN_KERNELS}
+
+
+def phase_assoc_fixture():
+    """Phase 8a: tests/fixtures/assoc_serve_small.npz on the card through
+    the dense backend's kernels: the attractor of `train_assoc` at
+    `assoc_params()`, `recall_accuracy` plain, after `sram_loss` and after
+    `sram_loss` plus a plane wipe, and the toy server's sessions, each
+    exactly the JAX package's. Returns the launch counters of the run
+    (counted at capture)."""
+    import torch
+    from repro_torch.core import Simulator, network as N
+    from repro_torch.core.params import test_scale
+    from repro_torch.experiments import (assoc_params, recall_accuracy,
+                                         sram_loss, train_assoc)
+    from repro_torch.launch.serve_bcpnn import BCPNNRecallServer, RecallRequest
+    d = dict(np.load(ROOT / "tests" / "fixtures" / "assoc_serve_small.npz"))
+    t0 = time.perf_counter()
+    reset_launches()
+    p = assoc_params()
+    sim = Simulator(p, key=0, cap_fire=p.n_hcu)
+    attractor = train_assoc(sim, d["patterns"], reps=ASSOC_REPS)
+    if not np.array_equal(attractor, d["attractor"]):
+        fail(f"assoc fixture: attractor {attractor.tolist()} against the JAX "
+             f"package's {d['attractor'].tolist()}")
+    trained = N.tree_map(torch.clone, sim.state)
+    recall = [recall_accuracy(sim, trained, d["patterns"], attractor,
+                              rng=np.random.default_rng(0), corrupt=c)
+              for c in (None, lambda s: sram_loss(s, p),
+                        lambda s: wipe_planes(sram_loss(s, p), p))]
+    if not np.array_equal(np.array(recall), d["recall"]):
+        fail(f"assoc fixture: recall {recall} against the JAX package's "
+             f"{d['recall'].tolist()}")
+    q = test_scale(n_hcu=4, rows=48, cols=8)
+    srv_sim = Simulator(q, key=0, cap_fire=q.n_hcu)
+    srv_sim.run(d["warm"])
+    srv = BCPNNRecallServer(srv_sim, slots=3, queue_capacity=8, step_ticks=5)
+    done = srv.run([RecallRequest(i, d["cue_rows"][i], d["cue_mask"][i],
+                                  budget_ticks=15)
+                    for i in range(d["cue_rows"].shape[0])])
+    got = {"srv_rid": [r.rid for r in done],
+           "srv_status": [int(r.status == "done") for r in done],
+           "srv_ticks": [r.ticks for r in done],
+           "srv_drops": [[r.drops[k] for k in ("in", "fire", "route")]
+                         for r in done],
+           "srv_winners": np.stack([r.winners for r in done]).tolist(),
+           "srv_fired": np.concatenate([r.fired for r in done]).tolist()}
+    for k, v in got.items():
+        if v != d[k].tolist():
+            fail(f"assoc fixture: the toy server's {k} differs from the JAX "
+                 f"package's")
+    if srv.captures != srv.slots or \
+            [c["step"] for c in srv.capture_steps] != [0]:
+        fail(f"assoc fixture: the toy server captured {srv.captures} graphs "
+             f"at steps {[c['step'] for c in srv.capture_steps]}")
+    counts = bcpnn_counts()
+    if not counts["row_update"] or not counts["col_update"] or \
+            any(counts[k] for k in BCPNN_KERNELS[:3]):
+        fail(f"assoc fixture: launches {counts}, expected the dense "
+             f"backend's row_update and col_update only")
+    print(f"assoc fixture: attractor {attractor.tolist()[0]}... and recall "
+          f"{recall} (plain, sram_loss, sram_loss + wipe) equal the JAX "
+          f"package's; the toy server's {len(done)} sessions "
+          f"({sum(r.status == 'done' for r in done)} converged, "
+          f"{int(d['srv_fired'].shape[0])} lane-ticks) equal it; launches at "
+          f"capture {json.dumps(counts)}; {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def popcount(x):
+    """Set bits of an int32 tensor, summed (as int64)."""
+    import torch
+    v = x.to(torch.int64) & 0xFFFFFFFF
+    return int(sum(((v >> b) & 1).sum() for b in range(32)))
+
+
+def phase_retention():
+    """Phase 8b: `inject_retention_faults` on a human-width state of
+    RETENTION_HCUS HCUs (after 10 ticks), all five planes, each mode, at
+    RETENTION_RATE, held bit for bit against the CPU: the CPU's call in
+    mode "flip" gives its draw (one key hits the same bits in every mode,
+    so each mode's planes are the draw applied to the old ones by an
+    integer operation; one CPU call instead of three, since a draw of 32
+    threefry words a cell takes seconds a plane on the host), and each
+    mode's planes on the card must equal that draw applied to the CPU's
+    planes. The changed bits lie within 5 sigma of their binomial
+    expectation (rate x bits for "flip", rate x the set bits for "clear",
+    rate x the clear bits for "set"). Then RETENTION_TICKS ticks on the
+    corrupted planes."""
+    import torch
+    from repro_torch.core import Simulator, network as N, rng
+    from repro_torch.core.params import human_scale
+    from repro_torch.runtime import inject_retention_faults
+    from repro_torch.runtime.resilience import IJ_PLANES
+    t0 = time.perf_counter()
+    p = human_scale(n_hcu=RETENTION_HCUS)
+    ext = torch.from_numpy(ext_tensor(p, 2 * RETENTION_TICKS, seed=2)).cuda()
+    sim = Simulator(p, key=0)
+    sim.run(ext[:RETENTION_TICKS])
+    st = N.tree_map(torch.clone, sim.state)
+    host = N.tree_map(lambda a: a.cpu(), st)
+    bits = lambda t: t.view(torch.int32)
+    t1 = time.perf_counter()
+    cpu = inject_retention_faults(host, rng.PRNGKey(7), RETENTION_RATE,
+                                  mode="flip")
+    t_cpu = time.perf_counter() - t1
+    draw = {f: bits(getattr(cpu.hcus, f)) ^ bits(getattr(host.hcus, f))
+            for f in IJ_PLANES}
+    out = []
+    for mode in ("flip", "clear", "set"):
+        t1 = time.perf_counter()
+        got = inject_retention_faults(st, rng.PRNGKey(7, "cuda"),
+                                      RETENTION_RATE, mode=mode)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t1
+        changed = exposed = 0
+        for f in IJ_PLANES:
+            a, o = bits(getattr(got.hcus, f)), bits(getattr(st.hcus, f))
+            h, d = bits(getattr(host.hcus, f)), draw[f]
+            want = {"flip": h ^ d, "clear": h & ~d, "set": h | d}[mode]
+            if not torch.equal(a.cpu(), want):
+                fail(f"retention: {mode} {f} differs from the CPU's")
+            changed += popcount(a ^ o)
+            ones = popcount(o)
+            exposed += {"flip": 32 * o.numel(), "clear": ones,
+                        "set": 32 * o.numel() - ones}[mode]
+        mean = RETENTION_RATE * exposed
+        sigma = (mean * (1 - RETENTION_RATE)) ** 0.5
+        if abs(changed - mean) > 5 * sigma:
+            fail(f"retention: {mode} changed {changed} bits, expected "
+                 f"{mean:.0f} +- {5 * sigma:.0f}")
+        out.append(f"{mode} {changed} bits changed (expected {mean:.0f}, "
+                   f"sigma {sigma:.1f}; {t_card:.3f} s on the card)")
+        del got
+    N.copy_into(sim.state, inject_retention_faults(st, rng.PRNGKey(7, "cuda"),
+                                                   RETENTION_RATE))
+    fired = sim.run(ext[RETENTION_TICKS:])
+    if tuple(fired.shape) != (RETENTION_TICKS, p.n_hcu) or \
+            int(sim.state.t) != 2 * RETENTION_TICKS:
+        fail("retention: the ticks after the faults went wrong")
+    print(f"retention: human_scale(n_hcu={RETENTION_HCUS}), rate "
+          f"{RETENTION_RATE}, all five planes, every mode bit for bit the "
+          f"CPU's draw ({t_cpu:.1f} s on the CPU): " + "; ".join(out)
+          + f"; then {RETENTION_TICKS} ticks on the corrupted planes "
+          f"({int((fired >= 0).sum())} spikes); "
+          f"{time.perf_counter() - t0:.1f} s")
+    del sim, st, host, cpu, draw
+    torch.cuda.empty_cache()
+
+
+def phase_resilient():
+    """Phase 8c: `ResilientRunner` on human_scale(256) (H cut only if the
+    disk under build/ holds less than keep_last checkpoints), phase 5's
+    Poisson input, RESILIENT_TICKS ticks in RESILIENT_CHUNK-tick chunks,
+    save_every=1, crashes before chunks RESILIENT_CRASHES on their first
+    try: the fired history equals an uninterrupted `Simulator.run` bit for
+    bit, 2 restarts, and the graphs captured before the restores are the
+    ones replayed after them. Returns the launch counters of the runner's
+    run (counted at capture)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core import Simulator
+    from repro_torch.core.params import human_scale
+    from repro_torch.runtime import ResilientRunner
+    base = ROOT / "build"
+    base.mkdir(exist_ok=True)
+    p = human_scale(n_hcu=256)
+    per_hcu = p.rows * p.cols * 20 + p.rows * 16 + p.cols * 16 + 4096
+    free = shutil.disk_usage(base).free
+    n = min(p.n_hcu, int(0.8 * free // (4 * per_hcu)))
+    if n < 2:
+        fail(f"resilient: {free} bytes free under {base}")
+    cut = "" if n == p.n_hcu else f" (cut from {p.n_hcu}: {free} bytes free)"
+    p = human_scale(n_hcu=n)
+    ext = torch.from_numpy(ext_tensor(p, RESILIENT_TICKS)).cuda()
+    t0 = time.perf_counter()
+    ref = Simulator(p, key=0)
+    want = ref.run(ext).cpu().numpy()
+    del ref
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+    sim = Simulator(p, key=0)
+    seen, pending = [], set(RESILIENT_CRASHES)
+
+    def injector(chunk):
+        seen.append((chunk, dict(sim.graphs.captured)))
+        if chunk in pending:
+            pending.discard(chunk)
+            return True
+        return False
+
+    tmp = pathlib.Path(tempfile.mkdtemp(dir=base, prefix="resilient_"))
+    try:
+        reset_launches()
+        runner = ResilientRunner(sim, str(tmp), chunk_ticks=RESILIENT_CHUNK,
+                                 save_every=1, fail_injector=injector)
+        t0 = time.perf_counter()
+        fired, health = runner.run(ext)
+        wall = time.perf_counter() - t0
+        counts = bcpnn_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if runner.restarts != len(RESILIENT_CRASHES) or pending:
+        fail(f"resilient: {runner.restarts} restarts")
+    if not np.array_equal(fired, want):
+        fail(f"resilient: the fired history differs from the uninterrupted "
+             f"run's in {int((fired != want).sum())} places")
+    final = sim.graphs.captured
+    before = {L: g for _, c in seen for L, g in c.items()}
+    if any(final.get(L) is not g for L, g in before.items()) or \
+            set(final) != {RESILIENT_CHUNK}:
+        fail(f"resilient: the restores changed the graphs ({len(before)} "
+             f"before, {len(final)} after)")
+    if counts["fused_row_update"] != counts["fused_col_update"] or \
+            not counts["fused_row_update"] or \
+            any(counts[k] for k in BCPNN_KERNELS[2:]):
+        fail(f"resilient: launches {counts}")
+    rec = ", ".join(f"t={r['restored_tick']} in {r['recovery_s']:.3f} s"
+                    for r in runner.recoveries)
+    print(f"resilient: human_scale(n_hcu={n}){cut}, {RESILIENT_TICKS} ticks "
+          f"in chunks of {RESILIENT_CHUNK}, save_every=1, crashes before "
+          f"chunks {RESILIENT_CRASHES}: fired history bit for bit the "
+          f"uninterrupted run's ({int((want >= 0).sum())} spikes; that run "
+          f"{t_ref:.2f} s), {runner.restarts} restarts, restored {rec}; run "
+          f"{wall:.2f} s; graphs captured: {len(before)} before the restores "
+          f"({sorted(before)} ticks), the same {len(final)} after; launches "
+          f"at capture {json.dumps(counts)}")
+    print("resilient health:", json.dumps(health))
+    del sim, runner
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_params():
+    """The serving benchmark's dynamics (benchmarks/serve_bcpnn.py) on the
+    paper's per-HCU dimensioning, at phase 5's 256 HCUs."""
+    import dataclasses
+    from repro_torch.core.params import human_scale
+    return dataclasses.replace(human_scale(n_hcu=256), mean_delay=1.5,
+                               out_rate=1.0, wta_temp=0.25, tau_p=400.0)
+
+
+def phase_serve():
+    """Phase 8d: `BCPNNRecallServer` at human width through the fused
+    worklist kernels (see the module docstring). Returns the launch
+    counters of the server's run (counted at capture)."""
+    import torch
+    from repro_torch.core import Simulator, network as N
+    from repro_torch.experiments import train_assoc
+    from repro_torch.launch.serve_bcpnn import BCPNNRecallServer, RecallRequest
+    p = serve_params()
+    gib = lambda b: b / 2**30
+    per_state = 5 * p.n_hcu * p.rows * p.cols * 4 + 4 * p.n_hcu * p.rows * 4
+    print(f"serve: sizing before the run: the Simulator's state, the template "
+          f"and {SERVE_SLOTS} lanes hold {SERVE_SLOTS + 2} x "
+          f"{per_state / 1e9:.2f} GB = {(SERVE_SLOTS + 2) * per_state / 1e9:.1f}"
+          f" GB of planes and i-vectors; {SERVE_CHECKED} lane snapshots "
+          f"{SERVE_CHECKED * per_state / 1e9:.1f} GB more")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = Simulator(p, key=0, cap_fire=p.n_hcu)
+    patterns = np.random.default_rng(3).integers(0, p.rows, (3, p.n_hcu))
+    attractor = train_assoc(sim, patterns, reps=ASSOC_REPS)
+    torch.cuda.synchronize()
+    print(f"serve: train_assoc on {type(sim.backend).__name__}"
+          f"{tuple(sim.backend)}, 3 patterns x {ASSOC_REPS} reps "
+          f"({(ASSOC_REPS * (3 * 6 + 2))} ticks) in "
+          f"{time.perf_counter() - t0:.2f} s; attractor HCUs with a winner "
+          f"{int((attractor >= 0).sum())} of {attractor.size}")
+    srv = BCPNNRecallServer(sim, slots=SERVE_SLOTS,
+                            queue_capacity=SERVE_QUEUE, step_ticks=SERVE_STEP)
+    rng = np.random.default_rng(1)
+    pending = [RecallRequest(rid, patterns[rid % 3], rng.random(p.n_hcu)
+                             < SERVE_CUE, budget_ticks=SERVE_BUDGET)
+               for rid in range(SERVE_SESSIONS)]
+    pattern_of = {r.rid: r.rid % 3 for r in pending}
+    snaps, counts_first = {}, None
+    scratch = len(N.scratch_ticked)
+    reset_launches()
+    t0 = time.perf_counter()
+    step_s = []
+    while pending or srv.busy:
+        while pending and srv.queue.free > 0:
+            srv.submit(pending.pop(0))
+        t1 = time.perf_counter()
+        done_now = srv.step()          # ends in the step's host read
+        step_s.append(time.perf_counter() - t1)
+        if counts_first is None:
+            counts_first = bcpnn_counts()
+        for req in done_now:
+            if len(snaps) < SERVE_CHECKED:
+                snaps[req.rid] = N.tree_map(
+                    torch.clone, N.take_session(srv.stacked, req.lane))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    scratch = len(N.scratch_ticked) - scratch
+    lane_ticks = SERVE_SLOTS * SERVE_STEP
+    if counts_first != {**{k: 0 for k in BCPNN_KERNELS},
+                        "fused_row_update": lane_ticks + scratch,
+                        "fused_col_update": lane_ticks + scratch}:
+        fail(f"serve: launches at the first step {counts_first}, expected "
+             f"{lane_ticks} (one a lane-tick) of the fused kernels only")
+    counts = bcpnn_counts()
+    if counts != counts_first or srv.captures != SERVE_SLOTS or \
+            [c["step"] for c in srv.capture_steps] != [0]:
+        fail(f"serve: captures after the first step ({srv.captures} graphs, "
+             f"steps {[c['step'] for c in srv.capture_steps]}, launches "
+             f"{counts})")
+    nodes = sum(graph_nodes(g) for lane in srv.graphs or ()
+                for g in lane.captured.values())
+    s = srv.stats()
+    done = srv.completed
+    if len(done) != SERVE_SESSIONS or s["queue"]["rejected"]:
+        fail(f"serve: {len(done)} sessions completed, "
+             f"{s['queue']['rejected']} rejected")
+    correct = total = 0
+    for r in done:
+        a = attractor[pattern_of[r.rid]]
+        probe = ~np.asarray(r.cue_mask) & (r.winners >= 0) & (a >= 0)
+        correct += int((r.winners[probe] == a[probe]).sum())
+        total += int(probe.sum())
+    # the first step captures the lanes' graphs; the others replay them
+    first_s = step_s[0]
+    step_ms = statistics.mean(step_s[1:]) * 1e3
+    report = {
+        "sessions": len(done), "qps": len(done) / wall, "wall_s": wall,
+        "done": s["done"], "expired": s["expired"], "steps": s["steps"],
+        "p50_service_ms": s["p50_service_ms"],
+        "p95_service_ms": s["p95_service_ms"],
+        "p50_sojourn_ms": s["p50_sojourn_ms"],
+        "p95_sojourn_ms": s["p95_sojourn_ms"],
+        "ms_per_step": step_ms, "ms_per_lane_tick": step_ms / lane_ticks,
+        "ms_per_step_range": [min(step_s[1:]) * 1e3, max(step_s[1:]) * 1e3],
+        "first_step_s": first_s, "captures": srv.captures,
+        "graph_nodes_per_step": nodes, "peak_gib": gib(peak),
+        "health": s["health"]["status"], "drops": s["health"]["drops"],
+        "recall": [correct, total], "chance": 1 / p.cols}
+    print(f"serve: {len(done)} sessions of budget {SERVE_BUDGET} through "
+          f"{SERVE_SLOTS} lanes x {SERVE_STEP} ticks in {wall:.2f} s = "
+          f"{report['qps']:.2f} qps; {s['done']} converged, {s['expired']} "
+          f"expired, {s['steps']} steps; service p50 "
+          f"{s['p50_service_ms']:.1f} / p95 {s['p95_service_ms']:.1f} ms, "
+          f"sojourn p50 {s['p50_sojourn_ms']:.1f} / p95 "
+          f"{s['p95_sojourn_ms']:.1f} ms (the first wave's include the "
+          f"captures); {step_ms:.1f} ms per engine step after the first "
+          f"({min(step_s[1:]) * 1e3:.1f}-{max(step_s[1:]) * 1e3:.1f}; the "
+          f"first, with the captures, {first_s:.2f} s), "
+          f"{step_ms / lane_ticks:.3f} ms per lane-tick; {srv.captures} "
+          f"graphs of {SERVE_STEP} ticks, {nodes} nodes a step "
+          f"({nodes / lane_ticks:.1f} a lane-tick), none captured after the "
+          f"first step; peak {gib(peak):.2f} GiB allocated (with "
+          f"{len(snaps)} lane snapshots); health {s['health']['status']}, "
+          f"drops {json.dumps(s['health']['drops'])}; recall of the served "
+          f"sessions {correct}/{total} = {correct / max(total, 1):.3f} "
+          f"(chance {1 / p.cols:.3f}); launches at the first step "
+          f"{json.dumps(counts_first)}")
+    report["profile"] = profile_serve_step(srv, patterns, p)
+    template = srv.template
+    checked = {r.rid: r for r in done if r.rid in snaps}
+    del srv
+    torch.cuda.empty_cache()
+    for rid, req in checked.items():
+        solo = Simulator(p, key=0, cap_fire=p.n_hcu)
+        N.copy_into(solo.state, template)
+        frame = np.full((p.n_hcu, 4), p.rows, np.int32)
+        mask = np.asarray(req.cue_mask, bool)
+        frame[mask, 0] = np.asarray(req.cue_rows, np.int32)[mask]
+        ext = torch.from_numpy(np.ascontiguousarray(
+            np.broadcast_to(frame, (req.ticks,) + frame.shape))).cuda()
+        f = solo.run(ext, chunk=SERVE_STEP).cpu().numpy()
+        if not np.array_equal(f, req.fired):
+            fail(f"serve: session {rid}'s fired history differs from its "
+                 f"solo run in {int((f != req.fired).sum())} places")
+        for a, b in zip(leaves(solo.state), leaves(snaps[rid]), strict=True):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                fail(f"serve: session {rid}'s lane differs from its solo run")
+        print(f"serve: session {rid} ({req.status}, {req.ticks} ticks, "
+              f"{int((f >= 0).sum())} spikes) equals its solo "
+              f"Simulator.run(chunk={SERVE_STEP}) from the template bit for "
+              f"bit, fired history and every leaf")
+        del solo
+    del sim, template, snaps
+    torch.cuda.empty_cache()
+    print("serve summary:", json.dumps(report))
+    return counts
+
+
+def profile_serve_step(srv, patterns, p):
+    """One more engine step of SERVE_SLOTS fresh sessions (after the
+    measured run), replays only, in torch.profiler with device activity
+    only: the device's busy time and operations a lane-tick, the span and
+    idle share of the profiled step, and the kernels that take the most
+    time (the profiler stretches the step it records)."""
+    import collections
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve_bcpnn import RecallRequest
+    rng = np.random.default_rng(2)
+    for i in range(SERVE_SLOTS):
+        srv.submit(RecallRequest(10_000 + i, patterns[i % 3],
+                                 rng.random(p.n_hcu) < SERVE_CUE,
+                                 budget_ticks=SERVE_BUDGET))
+    torch.cuda.synchronize()
+    captures = srv.captures
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        srv.step()
+        torch.cuda.synchronize()
+    if srv.captures != captures:
+        fail("serve profile: the profiled step captured")
+    evs = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not evs:
+        fail("serve profile: no device activity in the trace")
+    n = SERVE_SLOTS * SERVE_STEP
+    union, end = 0.0, evs[0][0]
+    for s_, e_, _ in evs:
+        union += max(0.0, e_ - max(s_, end))
+        end = max(end, e_)
+    span = max(e[1] for e in evs) - evs[0][0]
+    by = collections.defaultdict(lambda: [0.0, 0])
+    for s_, e_, nm in evs:
+        by[nm][0] += e_ - s_
+        by[nm][1] += 1
+    busy = sum(v[0] for v in by.values()) / n
+    ran = {k: sum(tag in e[2] for e in evs) for k, tag in KERNEL_TAGS.items()}
+    if ran["fused_row_update"] != n or ran["fused_col_update"] != n or \
+            any(ran[k] for k in BCPNN_KERNELS[2:]):
+        fail(f"serve profile: kernels ran {ran} in {n} lane-ticks")
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:8]
+    print(f"serve profile: one step of {n} lane-ticks (replays only, device "
+          f"activity only): kernels ran {json.dumps(ran)}; device busy "
+          f"{busy:.1f} us per lane-tick in {len(evs) / n:.1f} device ops; "
+          f"span {span / n:.1f} us per lane-tick, idle share of the profiled "
+          f"step {1 - union / span:.4f}")
+    for nm, (t, c) in top:
+        print(f"  device {t / n:9.1f} us/lane-tick {c / n:6.1f}/lane-tick  "
+              f"{nm[:80]}")
+    return {"device_busy_us_per_lane_tick": busy,
+            "device_ops_per_lane_tick": len(evs) / n,
+            "profiled_span_us_per_lane_tick": span / n,
+            "idle_share_profiled_step": 1 - union / span,
+            "top": {nm[:80]: t / n for nm, (t, _) in top}}
+
+
+def phase_recall(report):
+    """Phase 8: 8a-8d; adds each kernel's launches on these paths to the
+    report (`launches_by_path`, counted at capture)."""
+    paths = {"assoc_fixture": phase_assoc_fixture()}
+    phase_retention()
+    paths["resilient"] = phase_resilient()
+    paths["serve_human"] = phase_serve()
+    for e in report:
+        if e["name"] in BCPNN_KERNELS:
+            e["launches_by_path"] = {k: v[e["name"]] for k, v in paths.items()}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1618,6 +2150,8 @@ def main():
     done("paths")
     phase_checkpoints(dev)
     done("checkpoints")
+    phase_recall(report)
+    done("recall")
     flash = phase_flash(dev)
     done("flash")
     phase_lm_fixture(dev)

@@ -11,6 +11,14 @@ Ported so far:
   the JAX package has for it (`repro_torch.core.engine.Simulator`), on
   flat or column-blocked (Row-Merge) planes (`repro_torch.core.layout`),
   and the five BCPNN update kernels as hand-written Hopper kernels;
+* merged mode (`repro_torch.core.merged`) and checkpoints in the JAX
+  package's on-disk format (`repro_torch.checkpoint`);
+* resilience (`repro_torch.runtime`: `ResilientRunner`'s crash recovery
+  with bitwise replay, DRAM-retention faults `flip_bits` /
+  `inject_retention_faults`, the drop-budget `HealthMonitor`), the
+  associative-memory protocol (`repro_torch.experiments`) and BCPNN
+  recall serving (`repro_torch.launch.serve_bcpnn.BCPNNRecallServer`,
+  session lanes `stack_sessions` / `write_sessions` / `take_session`);
 * the LM serving path of the dense-family transformer
   (`repro_torch.models`, `repro_torch.train.serve_step`,
   `repro_torch.launch.serve.ServingEngine`), with prefill attention as a

@@ -9,7 +9,10 @@ with ij planes (H*R, C) and i-vectors (H*R,), ``delay_rows``,
 ``delay_count``, ``t``, ``drops_in``, ``drops_fire``, and ``jring`` for a
 merged state), plus ``base_key`` (two uint32 words) and ``drops_route``;
 the connectivity arrays are
-``conn_dest_hcu``, ``conn_dest_row`` and ``conn_delay``.
+``conn_dest_hcu``, ``conn_dest_row`` and ``conn_delay``. A stacked state
+of the recall server's session lanes (`network.stack_sessions`) travels
+the same way with a leading (S,) lane dim on every array, as the JAX
+package's stacked leaves have it.
 
 LM parameters travel as the JAX package's parameter tree flattened to
 numpy arrays keyed by `jax.tree_util.keystr` paths (``['embed']``,
@@ -39,7 +42,15 @@ def state_from_numpy(arrays, p: BCPNNParams, device,
     """NetworkState from the JAX package's leaves as numpy arrays (a dict or
     an npz file), in flat order; its ij planes are stored in ``layout``
     (None: flat). ``drops_route`` defaults to 0 when absent, ``jring`` to
-    None (a lazy state). The flat shapes are checked against ``p``."""
+    None (a lazy state). The flat shapes are checked against ``p``. Arrays
+    with a leading (S,) lane dim (``delay_rows`` of rank 4) give a stacked
+    state of S session lanes, each lane converted as a state of its own."""
+    if np.asarray(arrays["delay_rows"]).ndim == 4:
+        arrays = {k: np.asarray(arrays[k]) for k in arrays}
+        S = arrays["delay_rows"].shape[0]
+        lanes = [state_from_numpy({k: a[i] for k, a in arrays.items()}, p,
+                                  device, layout) for i in range(S)]
+        return N.tree_map(lambda *xs: torch.stack(xs), *lanes)
     n = np.asarray(arrays["delay_rows"]).shape[0]
     shapes = {f: (n * p.rows, p.cols) for f in ("zij", "eij", "pij", "wij", "tij")}
     shapes.update({f: (n * p.rows,) for f in ("zi", "ei", "pi", "ti")})
@@ -71,7 +82,12 @@ def state_from_numpy(arrays, p: BCPNNParams, device,
 def state_to_numpy(state: N.NetworkState, layout=None) -> dict:
     """The inverse of `state_from_numpy`: every leaf as a numpy array under
     its JAX-side name, in flat order (planes stored in ``layout`` are
-    unpacked), ``base_key`` as two uint32 words."""
+    unpacked), ``base_key`` as two uint32 words. A stacked state (``t`` of
+    shape (S,)) gives arrays with the leading lane dim."""
+    if state.t.dim() == 1:
+        lanes = [state_to_numpy(N.take_session(state, i), layout)
+                 for i in range(state.t.shape[0])]
+        return {k: np.stack([a[k] for a in lanes]) for k in lanes[0]}
     hcus = L.load_hcus(state.hcus, layout)
     out = {f"hcus_{f}": getattr(hcus, f).cpu().numpy()
            for f in H.HCUState._fields}

@@ -25,6 +25,12 @@ Drivers, as in the JAX package:
                      the counterpart of the JAX package's `lax.scan` chunk;
                      on the CPU the same ticks run one by one.
 
+Session lanes (the recall server's, `repro_torch.launch.serve_bcpnn`):
+`stack_sessions` gives every leaf a leading (S,) lane dim,
+`write_sessions` copies a template into chosen lanes in place and
+`take_session` views one lane as a single-session state, which the drivers
+run as they run any state.
+
 Chunking contract (the JAX package's): ext[k] is consumed by tick t0+k+1,
 t0 being state.t at entry; the fired history is (T, H) int32; T need not
 divide by ``chunk`` — full chunks share one graph and the remainder takes
@@ -193,6 +199,80 @@ def select_fired(fired: torch.Tensor, cap: int):
     j_idx = torch.where(sel_valid, fired[idx], 0)
     n_dropped = torch.sum(is_fired) - torch.sum(sel_valid)
     return h_idx.to(torch.int32), j_idx.to(torch.int32), n_dropped.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# session batching (serving): a leading (S,) lane dim over NetworkState
+# ---------------------------------------------------------------------------
+
+def tree_map(fn, *trees):
+    """``fn`` over the tensor leaves of NetworkStates of one structure (the
+    HCUState included), field by field; a None field stays None."""
+    out = []
+    for vals in zip(*trees, strict=True):
+        if vals[0] is None:
+            out.append(None)
+        elif isinstance(vals[0], tuple):
+            out.append(tree_map(fn, *vals))
+        else:
+            out.append(fn(*vals))
+    return type(trees[0])(*out)
+
+
+def copy_into(held, new) -> None:
+    """Copy every leaf of ``new`` into the same leaf of ``held`` (same
+    structure and shapes), in place: the tensors of ``held`` keep their
+    storage, so graphs captured on them stay valid. A leaf that already
+    shares its storage is left alone."""
+    for dst, src in _pairs(held, new):
+        if src.data_ptr() != dst.data_ptr() or src.device != dst.device:
+            dst.copy_(src)
+
+
+def stack_sessions(state: NetworkState, n_sessions: int) -> NetworkState:
+    """Replicate one NetworkState into ``n_sessions`` independent session
+    lanes: every leaf gains a leading (S,) dim (new contiguous tensors on
+    the state's device), so each lane ``take_session(stacked, i)`` is a
+    contiguous view.
+
+    Each lane then evolves under its own external stream (the state the
+    recall server `repro_torch.launch.serve_bcpnn` carries). Lanes are
+    advanced one at a time with exactly the single-session driver
+    (`network_run` on the lane's views), never batched into one launch:
+    that keeps every lane bit for bit an independent `Simulator.run`, as
+    the JAX package's `lax.map` over the lanes does."""
+    return tree_map(lambda a: a.unsqueeze(0).repeat(
+        (n_sessions,) + (1,) * a.dim()), state)
+
+
+def write_sessions(stacked: NetworkState, template: NetworkState,
+                   lanes) -> NetworkState:
+    """Copy ``template`` into the session lanes named by ``lanes`` (a
+    host-side (K,) integer array or list; a tensor is read back). As the
+    JAX package's drop-mode scatter: an entry in [-S, 0) counts from the
+    end, any other out-of-range entry is ignored, so a caller pads with S
+    to write fewer than K lanes. The copy is in place into the stacked
+    tensors, which keep their storage: admission never rebinds the lanes,
+    so the lanes' captured graphs survive it. Returns ``stacked``."""
+    S = stacked.t.shape[0]
+    if torch.is_tensor(lanes):
+        lanes = lanes.tolist()
+    keep = []
+    for lane in np.asarray(lanes, dtype=np.int64).reshape(-1).tolist():
+        lane = lane + S if -S <= lane < 0 else lane
+        if 0 <= lane < S:
+            keep.append(lane)
+    for dst, src in _pairs(stacked, template):
+        for lane in keep:
+            dst[lane].copy_(src)
+    return stacked
+
+
+def take_session(stacked: NetworkState, lane: int) -> NetworkState:
+    """One session lane as a single-session NetworkState of views into the
+    stacked tensors (no copy: a write to it writes the lane; clone it to
+    keep it)."""
+    return tree_map(lambda a: a[lane], stacked)
 
 
 def network_tick(state: NetworkState, conn: Connectivity, ext_rows,
@@ -370,16 +450,20 @@ class ChunkGraphs:
 
     ``captured`` maps each chunk length to its graph, in capture order
     (each kept with ``keep_graph=True``, so ``raw_cuda_graph()`` can be
-    inspected)."""
+    inspected). ``pool`` (a `torch.cuda.graph_pool_handle`) shares one
+    memory pool between several ChunkGraphs whose graphs are replayed one
+    after another on one stream, as the recall server's lanes are; by
+    default each has its own."""
 
-    def __init__(self):
+    def __init__(self, pool=None):
+        self._shared_pool = pool
         self.clear()
 
     def clear(self) -> None:
-        """Drop every graph and its memory."""
+        """Drop every graph (and its memory, unless the pool is shared)."""
         self._key = self._carry = self._conn = None
         self._chunks: dict[tuple, _Chunk] = {}
-        self._pool = None
+        self._pool = self._shared_pool
 
     @property
     def captured(self) -> dict[int, torch.cuda.CUDAGraph]:
@@ -422,9 +506,7 @@ class ChunkGraphs:
             graph.capture_begin(pool=self._pool)
             try:
                 final = _run_ticks(carry, conn, ext, p, be, cap_fire, fired)
-                for dst, src in _pairs(carry, final):
-                    if src.data_ptr() != dst.data_ptr():
-                        dst.copy_(src)
+                copy_into(carry, final)
                 del final
             except BaseException:
                 try:        # end the capture; the error raised is the first

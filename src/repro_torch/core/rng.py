@@ -6,12 +6,12 @@ per-HCU keys and the soft-WTA noise from `jax.random`; the port reproduces
 those streams bit for bit so that its fired history can equal the JAX
 package's. This is a transcription of `jax/_src/prng.py` (`threefry_2x32`,
 `_threefry_split_original`, `threefry_fold_in`,
-`_threefry_random_bits_original`, with its 8- and 16-bit branches) and
-`jax/_src/random.py` (`_uniform`, `_randint`, `_gumbel` in mode "low",
-`categorical`). The floating draws take float32 or bfloat16, as JAX
-draws them: bfloat16 gets 8 random bits a value (it has 7 mantissa bits),
-and every operation after the bits rounds to bfloat16, the bounds
-included.
+`_threefry_random_bits_original`, with its 8- and 16-bit branches and its
+blocks of 2^32 - 1 words) and `jax/_src/random.py` (`_uniform`,
+`_bernoulli` and `_gumbel` in mode "low", `_randint`, `categorical`). The
+floating draws take float32 or bfloat16, as JAX draws them: bfloat16 gets
+8 random bits a value (it has 7 mantissa bits), and every operation after
+the bits rounds to bfloat16, the bounds included.
 
 A key is an int64 tensor of shape (..., 2) holding two uint32 words. All
 uint32 arithmetic runs in int64 and is masked with 0xFFFFFFFF, which is
@@ -93,11 +93,24 @@ def split(key, num: int = 2):
     return _hash(key, count).reshape(tuple(key.shape[:-1]) + (num, 2))
 
 
+# words hashed under one key by `random_bits`: JAX's
+# ``dtypes.iinfo(np.uint32).max``. A draw of more words is cut into blocks
+# of this many, each under its own key. A module constant, so a test can
+# shrink it to a size that it can draw.
+BLOCK_WORDS = 0xFFFFFFFF
+
+
 def random_bits(key, shape=(), bit_width: int = 32):
     """`_threefry_random_bits_original`: (..., *shape) words of
     ``bit_width`` bits (32, 16 or 8) as int64. A 16- or 8-bit draw takes
     the 32-bit words of ceil(bit_width * size / 32) counts and cuts each
-    word into 32 // bit_width pieces, low bits first."""
+    word into 32 // bit_width pieces, low bits first.
+
+    Counts of BLOCK_WORDS words or more are cut as JAX cuts them: ``nblocks,
+    rem = divmod(n_words, BLOCK_WORDS)``, the keys ``split(key, nblocks +
+    1)``, each full block the hash of arange(BLOCK_WORDS) under its own key
+    and the remainder that of arange(rem) under the last key, concatenated
+    in order."""
     size = 1
     for s in shape:
         size *= s
@@ -105,8 +118,16 @@ def random_bits(key, shape=(), bit_width: int = 32):
         raise ValueError(f"bit_width must be 8, 16 or 32, got {bit_width}")
     per_word = 32 // bit_width
     n_words = -(-size // per_word)
-    count = torch.arange(n_words, dtype=torch.int64, device=key.device)
-    words = _hash(key, count)
+    nblocks, rem = divmod(n_words, BLOCK_WORDS)
+    if not nblocks:
+        words = _hash(key, torch.arange(rem, dtype=torch.int64,
+                                        device=key.device))
+    else:
+        keys = split(key, nblocks + 1)
+        block = torch.arange(BLOCK_WORDS, dtype=torch.int64, device=key.device)
+        words = torch.cat([_hash(keys[..., i, :], block)
+                           for i in range(nblocks)]
+                          + [_hash(keys[..., nblocks, :], block[:rem])], dim=-1)
     if per_word > 1:
         shifts = torch.arange(per_word, device=key.device) * bit_width
         words = ((words[..., None] >> shifts) & ((1 << bit_width) - 1))
@@ -136,6 +157,13 @@ def uniform(key, shape=(), minval: float = 0.0, maxval: float = 1.0,
     lo = torch.tensor(minval, dtype=dtype)
     hi = torch.tensor(maxval, dtype=dtype)
     return torch.clamp(floats * (hi - lo) + lo, min=lo.item())
+
+
+def bernoulli(key, p: float, shape=()):
+    """`jax.random.bernoulli` in mode "low": ``uniform(key, shape) < p``,
+    with ``p`` rounded to float32 as JAX converts it. Returns bool."""
+    # a zero-dimensional CPU tensor: applied to CUDA tensors as a scalar
+    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32)
 
 
 def randint(key, shape, minval: int, maxval: int):
