@@ -175,10 +175,39 @@ toolkit. Phases, in order; any failure exits non-zero:
                    statuses, ms per step and per lane-tick, graph nodes a
                    step, peak GiB, the health verdict and drops, and the
                    served sessions' recall beside chance.
-  9. report  — one JSON line of the kernels (with each BCPNN kernel's
-               launches on the phase 8 paths, counted at capture, under
-               ``launches_by_path``), then the last line
-               {"ok": true, "device": {...}}.
+  9. sharded — the sharded runtime (`repro_torch.core.distributed`):
+               9a. `Simulator.run_sharded` on a 1-rank NCCL group (this
+                   process) at human_scale(256), fused, flat,
+                   `lossless_route_config`: 100 ticks that capture one
+                   100-tick graph with the exchange's all_to_all inside
+                   (the fused kernels counted once a captured tick, no
+                   other kernel), then 100 replayed ticks under sync-debug
+                   "error", host clock ending in the fired rows' host read;
+                   the fired history of the 200 ticks and every state leaf
+                   bit for bit a local `Simulator.run` at cap_fire 256; a
+                   device trace of 100 more replayed ticks (each fused
+                   kernel once a tick, busy time, ops) and the exchange
+                   alone.
+               9b. the same at `default_route_config` (printing
+                   drops_route), against the local run at the default
+                   cap_fire.
+               9c-9e on 4 gloo ranks spawned on the one card
+               (`launch.ranks.spawn_ranks`, the only processes this script
+               starts), tick by tick: 9c. run_sharded at 4 x 64 HCUs
+               under `lossless_route_config`, 100 ticks: the gathered
+               fired history bit for bit the local run's and each rank's
+               slice of every state leaf bit for bit its state at tick 100
+               (the parent's tensors, through CUDA IPC); µs/tick measures
+               4 processes time-slicing one card, not scaling. 9d.
+               head_sharded_dense / head_sharded_worklist across the 4
+               ranks (the worklist one in the four fused / fused_cols
+               combinations: kernels 1-5) under the fixtures' contract. 9e.
+               `ElasticRunner` at test_scale(8, 64, 16) losing ranks 2-3
+               before chunk 3: the survivors bit for bit the local run.
+ 10. report  — one JSON line of the kernels (with each BCPNN kernel's
+               launches on the phase 8 paths, counted at capture, and on
+               the sharded paths of phase 9 under ``launches_by_path``),
+               then the last line {"ok": true, "device": {...}}.
 
 It imports the port only (never JAX or the JAX package) and exits non-zero
 without printing a result where no CUDA device is present.
@@ -1159,9 +1188,10 @@ def merged_flushes(name, run):
           + f", per-tick loop {summary['us_per_tick_per_tick']:.1f}")
 
 
-def profile_replay(name, sim, ext, expect, unprofiled):
-    """The graph driver over len(ext) more ticks (replays only, under
-    sync-debug "error") in torch.profiler with device activity only. From
+def profile_replay(name, sim, ext, expect, unprofiled, run=None):
+    """The graph driver (``run``, `sim.run` by default) over len(ext) more
+    ticks (replays only, under sync-debug "error") in torch.profiler with
+    device activity only. From
     that one trace: each hand-written kernel's executions, which must be
     one a tick for each kernel of ``expect`` and none for any other; the
     device's busy time (its operations' durations summed) and operations
@@ -1181,7 +1211,7 @@ def profile_replay(name, sim, ext, expect, unprofiled):
     with SMClocks() as clocks, profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.set_sync_debug_mode("error")
         try:
-            sim.run(ext)
+            (run or sim.run)(ext)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
@@ -2109,6 +2139,394 @@ def phase_recall(report):
             e["launches_by_path"] = {k: v[e["name"]] for k, v in paths.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the sharded runtime
+# ---------------------------------------------------------------------------
+
+SHARD_TICKS = 100             # ticks of each sharded run (9a-9c)
+SHARD_RANKS = 4               # gloo ranks spawned on the one card (9c-9e)
+EXCHANGE_CALLS = 100          # all_to_all calls timed alone
+ELASTIC_TICKS, ELASTIC_CHUNK = 24, 4
+ELASTIC_LOSS = {3: 2}         # chunk -> ranks lost before it (9e)
+# head_sharded_* fixture case -> (fixture, flags, the kernels it launches)
+SHARD_FIXTURES = {
+    "dense": ("sharded_dense", dict(worklist=False),
+              ("row_update", "col_update")),
+    **{f"worklist fused={f} fused_cols={fc}":
+       ("sharded_worklist", dict(worklist=True, fused=f, fused_cols=fc),
+        ("fused_row_update" if f else "worklist_row_update",
+         "fused_col_update" if fc else "col_update"))
+       for f in (True, False) for fc in (True, False)},
+}
+
+
+def exchange_us(mesh, rc):
+    """µs per all_to_all of the exchange's (ranks, cap_route) int32 word
+    buffer on ``mesh``'s group, alone: EXCHANGE_CALLS calls on the host
+    clock up to a synchronise (gloo's exchange runs on the host, where
+    CUDA events do not see it)."""
+    import torch
+    import torch.distributed as dist
+    send = torch.zeros((mesh.size, rc.cap_route), dtype=torch.int32,
+                       device=mesh.device)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=mesh.group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(EXCHANGE_CALLS):
+        dist.all_to_all_single(recv, send, group=mesh.group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / EXCHANGE_CALLS * 1e6
+
+
+def words_per_tick(fired, p, mesh, rc):
+    """Valid spike words a tick (the fired HCUs' fan-out) against the
+    exchange's slots (ranks x ranks x cap_route) and bytes a rank sends."""
+    valid = float((fired >= 0).sum(1).double().mean()) * p.fanout
+    return {"valid_words_per_tick": valid,
+            "slots_per_tick": mesh.size * mesh.size * rc.cap_route,
+            "bytes_sent_per_rank_per_tick": mesh.size * rc.cap_route * 4}
+
+
+def sharded_nccl(tag, p, ext, mesh, rc, want, ref=None):
+    """9a / 9b: `Simulator.run_sharded` on the 1-rank NCCL ``mesh`` at
+    ``rc``: SHARD_TICKS ticks that capture the chunk's graph (the launch
+    counters from 0: one launch of each fused kernel a captured tick and
+    the scratch tick's, none of another), then SHARD_TICKS timed ticks
+    that replay it under sync-debug "error", host clock ending in the one
+    host read of the fired rows (no launch may be counted). The fired
+    history of both must equal ``want`` ((2 SHARD_TICKS, H), a local
+    `Simulator.run`); with ``ref`` (that local Simulator) every leaf of the
+    state too. Then a device trace of SHARD_TICKS more replayed ticks
+    (`profile_replay`) and the exchange alone. Returns a summary."""
+    import torch
+    from repro_torch.core import Simulator, network
+    from repro_torch.core import distributed as DD
+    S = SHARD_TICKS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sim = Simulator(p, key=0)
+    run = lambda e: sim.run_sharded(e, mesh, rc=rc)
+    reset_launches()
+    scratch = len(network.scratch_ticked)
+    t0 = time.perf_counter()
+    first = run(ext[:S]).cpu()
+    first_s = time.perf_counter() - t0
+    scratch = len(network.scratch_ticked) - scratch
+    at_capture = bcpnn_counts()
+    check_counts(f"{tag} (capture)", at_capture,
+                 {"fused_row_update": S + scratch,
+                  "fused_col_update": S + scratch})
+    nodes = {L: graph_nodes(g) for L, g in sim.graphs.captured.items()}
+    if sim.state.hcus.zij.shape[0] != p.n_hcu * p.rows:
+        fail(f"{tag}: the rank holds {sim.state.hcus.zij.shape[0]} rows")
+    reset_launches()
+    torch.cuda.synchronize()
+    with SMClocks() as clocks:
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fired = run(ext[S:2 * S])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        fired = fired.cpu()
+        wall = time.perf_counter() - t0
+    check_counts(f"{tag} (replay)", bcpnn_counts(), {})
+    fired = torch.cat([first, fired])
+    diff = int((fired != want).sum())
+    drops = sim.drops()
+    if diff and not (drops["route"] and ref is None):
+        fail(f"{tag}: the fired history differs from the local run's in "
+             f"{diff} places (drops {drops})")
+    if ref is not None:
+        for (a, _), (b, _) in zip(DD._spec_pairs(sim.state,
+                                                 DD._shard_specs()[0]),
+                                  DD._spec_pairs(ref.state,
+                                                 DD._shard_specs()[0])):
+            if not torch.equal(a, b):
+                fail(f"{tag}: the state differs from the local run's")
+    us = wall / S * 1e6
+    replay = profile_replay(tag, sim, ext[2 * S:3 * S],
+                            ("fused_row_update", "fused_col_update"), us,
+                            run=run)
+    exch = exchange_us(mesh, rc)
+    words = words_per_tick(fired, p, mesh, rc)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{tag}: run_sharded on 1 NCCL rank, rc {tuple(rc)}: {S} ticks "
+          f"replayed in {wall:.4f} s = {us:.1f} us/tick (host clock ending "
+          f"in the fired rows' host read; {clocks}); first call {first_s:.3f}"
+          f" s (capture of {sorted(nodes)} ticks, {sum(nodes.values())} "
+          f"nodes, {scratch} scratch tick); fired history "
+          + ("bit for bit the local run's" if not diff else
+             f"differs from the local run's in {diff} places (route drops)")
+          + (" and every leaf of the state" if ref is not None else "")
+          + f" ({int((fired >= 0).sum())} spikes); drops {drops}; launches "
+          f"at capture {json.dumps(at_capture)}; exchange alone {exch:.1f} "
+          f"us; {words['valid_words_per_tick']:.1f} valid words a tick in "
+          f"{words['slots_per_tick']} slots; peak {peak:.3f} GiB")
+    out = {"us_per_tick": us, "first_call_s": first_s, "nodes": nodes,
+           "launches_at_capture": at_capture, "drops": drops,
+           "fired_differs": diff, "replay": replay, "exchange_us": exch,
+           "peak_gib": peak, **words}
+    del sim
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_gloo(rank, world, p, ext, want, state100):
+    """9c on one rank: `run_sharded` of SHARD_TICKS ticks at
+    `lossless_route_config` on the gloo group of SHARD_RANKS ranks on the
+    one card (tick by tick: gloo's exchange cannot be captured), host
+    clock from a barrier to the fired rows' host read. The gathered fired
+    history must equal ``want`` and this rank's slice of every state leaf
+    the local run's at the same tick (``state100``, the parent's tensors
+    through CUDA IPC); the ranks' drop counters must sum to the local
+    run's. Returns a summary of this rank."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import Simulator
+    from repro_torch.core import distributed as DD
+    from repro_torch.launch.mesh import make_bcpnn_mesh
+    mesh = make_bcpnn_mesh(device=torch.device("cuda", 0))
+    rc = DD.lossless_route_config(p, p.n_hcu // world)
+    sim = Simulator(p, key=0)
+    ext = torch.from_numpy(ext).cuda()
+    reset_launches()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fired = sim.run_sharded(ext, mesh, rc=rc).cpu()
+    wall = time.perf_counter() - t0
+    counts = bcpnn_counts()
+    st, ref = sim.state, state100
+    mine = lambda b: b[rank * (b.shape[0] // world):
+                       (rank + 1) * (b.shape[0] // world)]
+    pairs = [(getattr(st.hcus, f), mine(getattr(ref.hcus, f)))
+             for f in st.hcus._fields]
+    pairs += [(st.delay_rows, mine(ref.delay_rows)),
+              (st.delay_count, mine(ref.delay_count)), (st.t, ref.t),
+              (st.base_key, ref.base_key)]
+    same = [bool(torch.equal(a, b)) for a, b in pairs]
+    drops = torch.stack([sim.state.drops_in, sim.state.drops_fire,
+                         sim.state.drops_route])
+    dist.all_reduce(drops, group=mesh.group)
+    want_drops = [int(state100.drops_in), int(state100.drops_fire), 0]
+    exch = exchange_us(mesh, rc)
+    out = {"us_per_tick": wall / SHARD_TICKS * 1e6,
+           "fired_equal": bool(np.array_equal(fired.numpy(), want)),
+           "leaves_equal": all(same), "leaves": len(same),
+           "drops_sum": drops.tolist(), "drops_want": want_drops,
+           "launches": counts, "exchange_us": exch,
+           "rows": sim.state.hcus.zij.shape[0],
+           **words_per_tick(fired, p, mesh, rc)}
+    del sim, st, ref, state100, pairs
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_fixtures(rank, world):
+    """9d on one rank: head_sharded_dense / head_sharded_worklist (8 HCUs,
+    `default_route_config(p, 2)`) across the SHARD_RANKS gloo ranks on the
+    card, the worklist one in the four fused / fused_cols combinations
+    (kernels 1-5); rank 0 holds the gathered run to the fixture's contract
+    (`fixture_gaps`). Each rank's launch counters, from 0 for each case,
+    must show one launch a tick of the case's two kernels and none of any
+    other. Returns {case: (launches, largest float gap)}."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.core import distributed as DD
+    from repro_torch.core import network as N
+    from repro_torch.core import rng
+    from repro_torch.core.params import test_scale
+    from repro_torch.launch.mesh import make_bcpnn_mesh
+    p = test_scale(8, 64, 16)
+    dev = torch.device("cuda", 0)
+    mesh = make_bcpnn_mesh(device=dev)
+    h = p.n_hcu // world
+    out = {}
+    for case, (name, kw, kernels) in SHARD_FIXTURES.items():
+        d = dict(np.load(ROOT / "tests" / "fixtures" / f"head_{name}.npz"))
+        state = N.init_network(p, rng.PRNGKey(0, dev))
+        s, c = DD.shard_network(mesh, state, convert.conn_from_numpy(d, dev))
+        fn = DD.make_dist_run(mesh, p, DD.default_route_config(p, 2), **kw)
+        reset_launches()
+        s, f = fn(s, c, torch.from_numpy(d["ext"][:, rank * h:(rank + 1) * h]))
+        counts = bcpnn_counts()
+        T = d["ext"].shape[0]
+        check_counts(f"sharded fixture {case} (rank {rank})", counts,
+                     {k: T for k in kernels})
+        fired = DD.gather_fired(mesh, f).cpu().numpy()
+        got = convert.state_to_numpy(DD.gather_network(mesh, s))
+        gaps = fixture_gaps(f"sharded {case}", fired, got, d)
+        out[case] = (counts, max(gaps.values()))
+    return out
+
+
+def sharded_elastic(rank, world, ckpt):
+    """9e on one rank: `ElasticRunner` on test_scale(8, 64, 16) (worklist
+    backend, the fused kernels) over the SHARD_RANKS gloo ranks on the
+    card, ELASTIC_TICKS ticks in ELASTIC_CHUNK-tick chunks, losing the
+    last 2 ranks before chunk 3: the survivors' fired history and every
+    plane bit for bit a local `Simulator.run` at cap_fire H. Returns a
+    summary, or "lost" on a lost rank."""
+    import torch
+    from repro_torch.core import Simulator
+    from repro_torch.core.params import test_scale
+    from repro_torch.runtime import DeviceLoss, ElasticRunner
+    p = test_scale(8, 64, 16)
+    ext = ext_tensor(p, ELASTIC_TICKS, lam=3.0, seed=11)
+    ref = Simulator(p, key=0, cap_fire=p.n_hcu, worklist=True)
+    want = ref.run(ext).cpu().numpy()
+    sim = Simulator(p, key=0, worklist=True)
+    pending = dict(ELASTIC_LOSS)
+    runner = ElasticRunner(sim, ckpt, chunk_ticks=ELASTIC_CHUNK,
+                           fail_injector=lambda c: pending.pop(c, 0))
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        fired, health = runner.run(ext)
+    except DeviceLoss:
+        return "lost"
+    wall = time.perf_counter() - t0
+    if not np.array_equal(fired, want):
+        fail(f"elastic (rank {rank}): the fired history differs from the "
+             f"local run's in {int((fired != want).sum())} places")
+    for f in sim.state.hcus._fields:
+        if not torch.equal(getattr(sim.state.hcus, f),
+                           getattr(ref.state.hcus, f)):
+            fail(f"elastic (rank {rank}): {f} differs from the local run's")
+    return {"wall_s": wall, "restarts": runner.restarts,
+            "recoveries": runner.recoveries, "devices": runner.devices,
+            "status": health["status"], "drops": health["drops"],
+            "launches": bcpnn_counts(), "spikes": int((want >= 0).sum())}
+
+
+def sharded_ranks(rank, world, p, ext, want, state100, ckpt):
+    """9c-9e on one of the spawned gloo ranks (cuda:0 for all)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    out = {"9c": sharded_gloo(rank, world, p, ext, want, state100)}
+    del state100
+    out["9d"] = sharded_fixtures(rank, world)
+    out["9e"] = sharded_elastic(rank, world, ckpt)
+    return out
+
+
+def phase_sharded(report):
+    """Phase 9: the sharded runtime (`repro_torch.core.distributed`,
+    `Simulator.run_sharded`, `ElasticRunner`) on the card. 9a / 9b in this
+    process on a 1-rank NCCL group at human width (`sharded_nccl`); 9c-9e
+    on SHARD_RANKS gloo ranks spawned on the one card (`sharded_ranks`),
+    the only ranks this script starts. Adds each BCPNN kernel's launches
+    on these paths to the report (`launches_by_path`)."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import Simulator
+    from repro_torch.core import distributed as DD
+    from repro_torch.core import network as N
+    from repro_torch.core.params import human_scale
+    from repro_torch.launch.mesh import make_bcpnn_mesh
+    from repro_torch.launch.ranks import spawn_ranks
+    p = human_scale(n_hcu=256)
+    S = SHARD_TICKS
+    ext = torch.from_numpy(ext_tensor(p, 3 * S)).cuda()
+    # the local references: at cap_fire H (the lossless exchange's fired
+    # batch), its state at tick S kept for 9c; at the default cap for 9b
+    t0 = time.perf_counter()
+    ref = Simulator(p, key=0, cap_fire=p.n_hcu)
+    want = [ref.run(ext[:S])]
+    state100 = N.tree_map(lambda a: a.clone(), ref.state)
+    want = torch.cat(want + [ref.run(ext[S:2 * S])]).cpu()
+    print(f"sharded: local references of {2 * S} ticks at cap_fire "
+          f"{p.n_hcu} ({int((want >= 0).sum())} spikes) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    base = ROOT / "build"
+    base.mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(dir=base, prefix="sharded_"))
+    paths = {}
+    try:
+        dev = torch.device("cuda", 0)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = make_bcpnn_mesh()
+            a = sharded_nccl("9a lossless", p, ext, mesh,
+                             DD.lossless_route_config(p, p.n_hcu), want, ref)
+            del ref
+            torch.cuda.empty_cache()
+            local = Simulator(p, key=0)
+            want_b = torch.cat([local.run(ext[:S]),
+                                local.run(ext[S:2 * S])]).cpu()
+            del local
+            b = sharded_nccl("9b default", p, ext, mesh,
+                             DD.default_route_config(p, p.n_hcu, 1), want_b)
+        finally:
+            dist.destroy_process_group()
+        paths["sharded_nccl"] = a["launches_at_capture"]
+        paths["sharded_nccl_default_rc"] = b["launches_at_capture"]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = spawn_ranks(sharded_ranks, SHARD_RANKS, backend="gloo",
+                          args=(p, ext[:S].cpu().numpy(),
+                                want[:S].numpy(), state100,
+                                str(tmp / "elastic")),
+                          timeout_s=300)
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del state100
+    torch.cuda.ipc_collect()
+    c = [res[r]["9c"] for r in range(SHARD_RANKS)]
+    for r, x in enumerate(c):
+        if not (x["fired_equal"] and x["leaves_equal"]) or \
+                x["drops_sum"] != x["drops_want"]:
+            fail(f"9c rank {r}: {json.dumps(x)}")
+        check_counts(f"9c rank {r}", x["launches"],
+                     {"fused_row_update": S, "fused_col_update": S})
+    print(f"9c: run_sharded on {SHARD_RANKS} gloo ranks on the one card "
+          f"(each {c[0]['rows']} rows, lossless rc), {S} ticks tick by "
+          f"tick: fired history and every rank's slice of the {c[0]['leaves']}"
+          f" state leaves bit for bit the local run's at tick {S} (and 9a's"
+          f"), drop counters summing to its {c[0]['drops_want']}; us/tick "
+          f"by rank {[round(x['us_per_tick'], 1) for x in c]} (time-slicing "
+          f"{SHARD_RANKS} processes on one card, not scaling); exchange "
+          f"alone {[round(x['exchange_us'], 1) for x in c]} us; "
+          f"{c[0]['valid_words_per_tick']:.1f} valid words a tick in "
+          f"{c[0]['slots_per_tick']} slots; the spawn {spawn_s:.1f} s")
+    d = res[0]["9d"]
+    for case, (counts, gap) in d.items():
+        print(f"9d {case}: head fixture on {SHARD_RANKS} ranks on the card: "
+              f"fired history and integer leaves exact, largest float gap "
+              f"{gap:.3g}; launches on rank 0 {json.dumps(counts)}")
+    e = [res[r]["9e"] for r in range(SHARD_RANKS)]
+    lost = [r for r, x in enumerate(e) if x == "lost"]
+    live = [x for x in e if x != "lost"]
+    if lost != [2, 3] or any(x["restarts"] != 1 or x["devices"] != [0, 1]
+                             for x in live):
+        fail(f"9e: {json.dumps(e)}")
+    print(f"9e: ElasticRunner on {SHARD_RANKS} gloo ranks, ranks {lost} "
+          f"lost before chunk 3: the survivors' fired history and planes "
+          f"bit for bit the local run's ({live[0]['spikes']} spikes), "
+          f"recovery {json.dumps(live[0]['recoveries'])}, run "
+          f"{live[0]['wall_s']:.2f} s, health {live[0]['status']}, drops "
+          f"{json.dumps(live[0]['drops'])}")
+    paths["sharded_gloo_4_ranks"] = {k: sum(x["launches"][k] for x in c)
+                                     for k in BCPNN_KERNELS}
+    paths["sharded_fixtures"] = {k: sum(v[0][k] for r in range(SHARD_RANKS)
+                                        for v in res[r]["9d"].values())
+                                 for k in BCPNN_KERNELS}
+    paths["elastic"] = {k: sum(x["launches"][k] for x in live)
+                        for k in BCPNN_KERNELS}
+    for entry in report:
+        if entry["name"] in BCPNN_KERNELS:
+            entry.setdefault("launches_by_path", {}).update(
+                {k: v[entry["name"]] for k, v in paths.items()})
+    print("sharded summary:", json.dumps({"9a": a, "9b": b, "9c": c}))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2157,6 +2575,8 @@ def main():
     phase_lm_fixture(dev)
     flash["launches"] = phase_lm(dev, smi)
     done("lm")
+    phase_sharded(report)
+    done("sharded")
     report.append(flash)
     print("the BCPNN kernels' library_ms is null: no single PyTorch call "
           "computes a cell-math pass; flash_attention's is "

@@ -280,7 +280,14 @@ class TickBackend(Protocol):
     them. `carry_in` / `carry_out` convert between the stored layout and
     the one the backend threads through a chunk; `plane_update` runs the
     row / WTA / column phases of one tick on the carry and returns
-    (state', fired, h_idx, j_idx, n_dropped)."""
+    (state', fired, h_idx, j_idx, n_dropped).
+
+    `plane_update_split` is the same tick with the column phase deferred:
+    it returns (state', fired, h_idx, j_idx, n_dropped, col), ``col`` an
+    hcus -> hcus closure holding the column pass, or None where the mode
+    runs everything up front (eager, merged). The sharded tick issues the
+    spike exchange between the WTA and ``col`` (`tick`'s split route);
+    applying ``col`` at once is `plane_update`."""
 
     def carry_in(self, state): ...
 
@@ -288,6 +295,18 @@ class TickBackend(Protocol):
 
     def plane_update(self, state, rows, t, keys, p: BCPNNParams,
                      cap: int): ...
+
+    def plane_update_split(self, state, rows, t, keys, p: BCPNNParams,
+                           cap: int): ...
+
+
+def _apply_columns(split):
+    """`plane_update` from `plane_update_split`'s result: the deferred
+    column pass applied at once."""
+    state, fired, h_idx, j_idx, n_drop, col = split
+    if col is not None:
+        state = state._replace(hcus=col(state.hcus))
+    return state, fired, h_idx, j_idx, n_drop
 
 
 class DenseBackend(NamedTuple):
@@ -313,24 +332,32 @@ class DenseBackend(NamedTuple):
     def plane_update(self, state, rows, t, keys, p: BCPNNParams, cap: int):
         """Row phase, WTA and column phase of one tick on the flat carry.
         Returns (state', fired, h_idx, j_idx, n_dropped)."""
+        return _apply_columns(self.plane_update_split(state, rows, t, keys,
+                                                      p, cap))
+
+    def plane_update_split(self, state, rows, t, keys, p: BCPNNParams,
+                           cap: int):
+        """`plane_update` with the lazy column phase returned as a closure
+        over the flat hcus (None in the eager and merged modes)."""
         n = state.delay_rows.shape[0]
         hb = L.batched_state(state.hcus, n)
+        col = None
         if self.mode == "eager":
             hb, fired = reference.eager_tick(hb, rows, t, keys, p)
-            h_idx, j_idx, n_drop = N.select_fired(fired, cap)
         elif self.mode == "merged":
             hb, jring, fired = M.hcu_tick_merged(hb, state.jring, rows, t,
                                                  keys, p)
             state = state._replace(jring=jring)
-            h_idx, j_idx, n_drop = N.select_fired(fired, cap)
         elif self.mode == "lazy":
             hb, fired = H.hcu_tick_pre(hb, rows, t, keys, p)
-            h_idx, j_idx, n_drop = N.select_fired(fired, cap)
-            hb = column_updates_batched(hb, h_idx, j_idx, t, p)
         else:
             raise ValueError(f"unknown dense mode {self.mode!r}")
+        h_idx, j_idx, n_drop = N.select_fired(fired, cap)
+        if self.mode == "lazy":
+            col = lambda hc: L.flat_state(column_updates_batched(
+                L.batched_state(hc, n), h_idx, j_idx, t, p))
         return (state._replace(hcus=L.flat_state(hb)), fired, h_idx, j_idx,
-                n_drop)
+                n_drop, col)
 
 
 class WorklistBackend(NamedTuple):
@@ -356,21 +383,28 @@ class WorklistBackend(NamedTuple):
     def plane_update(self, state, rows, t, keys, p: BCPNNParams, cap: int):
         """Row phase, WTA and column phase of one tick. Returns
         (state', fired, h_idx, j_idx, n_dropped)."""
+        return _apply_columns(self.plane_update_split(state, rows, t, keys,
+                                                      p, cap))
+
+    def plane_update_split(self, state, rows, t, keys, p: BCPNNParams,
+                           cap: int):
+        """`plane_update` with the lazy column phase returned as a closure
+        (`worklist_col_dispatch`; None in merged mode)."""
         n = state.delay_rows.shape[0]
         if self.mode == "merged":
             hcus, jring, fired = _merged_worklist_update(
                 state.hcus, state.jring, rows, t, keys, p, self.layout)
             h_idx, j_idx, n_drop = N.select_fired(fired, cap)
             return (state._replace(hcus=hcus, jring=jring), fired, h_idx,
-                    j_idx, n_drop)
+                    j_idx, n_drop, None)
         hcus, w_rows, c = worklist_lazy_rows(state.hcus, rows, t, p,
                                              fused=self.fused,
                                              layout=self.layout)
         hcus, fired = H.periodic_update(hcus, w_rows, c["counts"], keys, p)
         h_idx, j_idx, n_drop = N.select_fired(fired, cap)
-        hcus = worklist_col_dispatch(self.fused_cols, h_idx, j_idx, t, p,
-                                     n, self.layout)(hcus)
-        return state._replace(hcus=hcus), fired, h_idx, j_idx, n_drop
+        col = worklist_col_dispatch(self.fused_cols, h_idx, j_idx, t, p, n,
+                                    self.layout)
+        return state._replace(hcus=hcus), fired, h_idx, j_idx, n_drop, col
 
 
 def select_backend(p: BCPNNParams, *, eager: bool = False,
@@ -398,12 +432,31 @@ def select_backend(p: BCPNNParams, *, eager: bool = False,
 
 
 def tick(state: N.NetworkState, conn: N.Connectivity, ext_rows,
-         p: BCPNNParams, be, cap_fire: int | None = None):
+         p: BCPNNParams, be, cap_fire: int | None = None, *, gid_base=0,
+         route=None, cond_columns: bool = True):
     """Advance the network one 1 ms tick (``state`` in the backend's carry
     layout, `carry_in`). The ij planes and i-vectors of ``state`` are
     rewritten in place; the other leaves of the returned state are new
     tensors. Returns (state', fired (H,) int32) with fired[h] = MCU index
-    or -1."""
+    or -1. Every driver, local or sharded, runs this one body.
+
+      gid_base      — global id of local HCU 0 (sharded: rank * h_local),
+                      so each HCU's RNG stream folds its global id and the
+                      trajectory does not depend on the rank count;
+      route         — spike routing hook route(state, dest_h, dest_r,
+                      delay, valid, p, n) -> state'; by default the local
+                      `network.enqueue_spikes`. A route with `send` /
+                      `recv` (`distributed.SparseExchange`) runs split:
+                      the exchange is issued after the WTA and consumed
+                      after the column pass, which neither reads nor
+                      writes what the exchange does (delay queues and drop
+                      counters against ij planes), so the split tick gives
+                      the sequential one's bits;
+      cond_columns  — the JAX package's gate of the column pass on "any
+                      HCU fired?"; taken for its signature only: the port
+                      runs the pass every tick, its padding entries
+                      writing nothing, which gives the same bits.
+    """
     n = state.delay_rows.shape[0]
     t = state.t + 1
     cap = cap_fire or max(2, int(0.35 * n) + 1)
@@ -414,9 +467,14 @@ def tick(state: N.NetworkState, conn: N.Connectivity, ext_rows,
 
     # 2. plane update (rows + WTA + columns), the JAX package's RNG stream
     k_t = rng.fold_in(state.base_key, t)
-    keys = rng.fold_in(k_t, torch.arange(n, device=rows.device))
-    state, fired, h_idx, j_idx, n_drop = be.plane_update(state, rows, t,
-                                                         keys, p, cap)
+    keys = rng.fold_in(k_t, gid_base + torch.arange(n, device=rows.device))
+    split = route is not None and hasattr(route, "send")
+    if split:
+        state, fired, h_idx, j_idx, n_drop, col = be.plane_update_split(
+            state, rows, t, keys, p, cap)
+    else:
+        state, fired, h_idx, j_idx, n_drop = be.plane_update(state, rows, t,
+                                                             keys, p, cap)
     state = state._replace(drops_fire=state.drops_fire + n_drop, t=t)
 
     # 3. fan out spikes from the fired batch into delay queues
@@ -426,7 +484,16 @@ def tick(state: N.NetworkState, conn: N.Connectivity, ext_rows,
     dest_r = conn.dest_row[safe_h, jl].reshape(-1)
     dly = conn.delay[safe_h, jl].reshape(-1)
     valid = (h_idx < n)[:, None].expand(-1, conn.dest_hcu.shape[2]).reshape(-1)
-    state = N.enqueue_spikes(state, dest_h, dest_r, dly, valid, p, n)
+    if split:
+        # 3a. bucket and issue the exchange; 2b. columns while it is in
+        # flight; 3b. enqueue the delivered spikes
+        state, inflight = route.send(state, dest_h, dest_r, dly, valid, p, n)
+        if col is not None:
+            state = state._replace(hcus=col(state.hcus))
+        state = route.recv(state, inflight, p, n)
+    else:
+        state = (route or N.enqueue_spikes)(state, dest_h, dest_r, dly,
+                                            valid, p, n)
     return state, fired
 
 
@@ -479,6 +546,7 @@ class Simulator:
         # None (flat) or a BlockedLayout ("blocked" -> the (8, 4) tile)
         self.layout = L.resolve_layout(layout, p)
         self.graphs = N.ChunkGraphs()
+        self._mesh = None
         self.reset(key)
 
     def _kw(self):
@@ -500,6 +568,7 @@ class Simulator:
         captured chunks. Returns self."""
         self.state = None                # freed before the new one is made
         self.graphs.clear()
+        self._mesh = self._dist_cache = None
         if key is not None:
             self._key = (rng.PRNGKey(key, self.device) if isinstance(key, int)
                          else key.to(self.device))
@@ -512,6 +581,7 @@ class Simulator:
     def tick(self, ext_rows):
         """One 1 ms tick; ext_rows (H, A_ext). Returns fired (H,)."""
         ext_rows = torch.as_tensor(ext_rows).to(self.device, torch.int32)
+        self._unshard()
         self.graphs.clear()
         self.state, fired = N.network_tick(self.state, self.conn, ext_rows,
                                            self.p, **self._kw())
@@ -522,6 +592,7 @@ class Simulator:
         an iterable of (H, A_ext) frames, or a callable ext_fn(t) (then
         pass n_ticks), ``chunk`` ticks at a time (default: the
         Simulator's). Returns the fired history (T, H) int32."""
+        self._unshard()
         if callable(ext):
             ext = N.stage_external(ext, n_ticks, t0=int(self.state.t),
                                    device=self.device)
@@ -538,14 +609,78 @@ class Simulator:
         """Per-tick host-loop driver: ext_fn(t) gives tick t's (H, A_ext)
         input. Reads the time back to the host every tick, as the JAX
         package's host loop does. Returns the fired history (T, H)."""
+        self._unshard()
         self.graphs.clear()
         self.state, fired = N.run(self.state, self.conn, ext_fn, n_ticks,
                                   self.p, **self._kw())
         return fired
 
-    def run_sharded(self, *args, **kwargs):
-        raise NotImplementedError("the sharded runtime is not ported to "
-                                  "PyTorch yet (ROADMAP queue A item 7)")
+    def run_sharded(self, ext, mesh=None, axis: str = "hcu", rc=None):
+        """Run the ticks of the global (T, H, A_ext) input ``ext`` on an HCU
+        mesh (`launch.mesh.HcuMesh`; default: every rank of the default
+        process group, on this Simulator's device), ``chunk`` ticks at a
+        time (`distributed.make_dist_run`: CUDA-graph chunks on an NCCL
+        group, tick by tick on gloo). Every rank of the mesh calls it with
+        the same input and gets the global (T, H) fired history.
+
+        The first call on a mesh keeps only this rank's slice of the
+        network (`distributed.shard_network`): ``state`` and ``conn`` are
+        then the rank's, and stay so across calls. The driver is built once
+        per (mesh, rc); ``rc`` defaults to `default_route_config` for the
+        mesh. A later `tick`, `run`, `run_host`, `save` or `load` gathers
+        the global network back first (a collective), as does a call on
+        another mesh. ``axis`` names the mesh's one axis, as in the JAX
+        package."""
+        from repro_torch.core import distributed as DD
+        from repro_torch.launch.mesh import make_bcpnn_mesh
+        if self.merged:
+            # the sharded runtime has no jring shard specs yet; silently
+            # running the lazy backend would diverge from sim.run()
+            raise NotImplementedError(
+                "merged mode is not supported by the sharded runtime")
+        if self.layout is not None:
+            # the sharded drivers carry canonical flat planes; silently
+            # dropping the blocked layout would diverge from sim.run()
+            raise NotImplementedError(
+                "blocked plane layouts are not supported by the sharded "
+                "runtime (run with layout=None/'flat')")
+        if mesh is None:
+            mesh = self._mesh or make_bcpnn_mesh(device=self.device)
+        if rc is None:
+            rc = DD.default_route_config(self.p, self.n_hcu // mesh.size,
+                                         mesh.size)
+        if self._mesh != mesh:
+            self._unshard()
+            self.graphs.clear()
+            self.state, self.conn = DD.shard_network(mesh, self.state,
+                                                     self.conn)
+            self._mesh = mesh
+        if self._dist_cache is None or self._dist_cache[0] != rc:
+            self._dist_cache = (rc, DD.make_dist_run(
+                mesh, self.p, rc, eager=self.eager, worklist=self.worklist,
+                fused=self.fused, fused_cols=self.fused_cols))
+        ext = N.stage_external(ext)
+        h = self.n_hcu // mesh.size
+        ext = ext[:, mesh.rank * h:(mesh.rank + 1) * h]
+        self.state, fired = self._dist_cache[1](self.state, self.conn, ext,
+                                                chunk=self.chunk,
+                                                graphs=self.graphs)
+        return DD.gather_fired(mesh, fired)
+
+    def _unshard(self) -> None:
+        """Gather the global network back onto this Simulator's device
+        after `run_sharded` (a collective of its mesh); a no-op when the
+        held network is global."""
+        if self._mesh is None:
+            return
+        from repro_torch.core import distributed as DD
+        mesh, self._mesh, self._dist_cache = self._mesh, None, None
+        self.graphs.clear()
+        conn_specs = DD._shard_specs()[1]
+        state = DD.gather_network(mesh, self.state)
+        conn = DD.gather_network(mesh, self.conn, conn_specs)
+        self.state = N.tree_map(lambda a: a.to(self.device), state)
+        self.conn = N.tree_map(lambda a: a.to(self.device), conn)
 
     def save(self, ckpt_dir: str, step: int | None = None) -> str:
         """Checkpoint the held state (`checkpoint.save`: atomic, numpy
@@ -554,6 +689,7 @@ class Simulator:
         manifest records the plane layout (`layout.layout_tag`), so a load
         under another layout converts. Returns the step directory."""
         from repro_torch.checkpoint import save as ckpt_save
+        self._unshard()
         st = self.state
         step = int(st.t) if step is None else step
         return ckpt_save(ckpt_dir, step, st._replace(
@@ -578,6 +714,7 @@ class Simulator:
                 raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
         meta = manifest(ckpt_dir, step) or {}
         saved = L.layout_from_tag(meta.get("layout", "flat"), self.p)
+        self._unshard()
         self.graphs.clear()
         if L.layout_tag(saved) == L.layout_tag(self.layout):
             self.state = restore_network(ckpt_dir, step, self.state)
@@ -591,13 +728,19 @@ class Simulator:
 
     def drops(self) -> dict:
         """Cumulative spike-drop counters {'in', 'fire', 'route'} (reads
-        them back from the device)."""
+        them back from the device). After `run_sharded`, what the JAX
+        package reads from a sharded state: its rank 0's counters, on
+        every rank (a collective, `distributed.drop_counters`)."""
+        if self._mesh is not None:
+            from repro_torch.core import distributed as DD
+            return DD.drop_counters(self._mesh, self.state)
         return N.drop_counters(self.state)
 
     def hcus(self) -> H.HCUState:
         """Batched (H, R, C) view of the held state in flat order: under
         the flat layout a view that shares its storage, under a blocked
-        layout a copy (the planes unpacked, `network.hcu_view`)."""
+        layout a copy (the planes unpacked, `network.hcu_view`). After
+        `run_sharded`, this rank's HCUs."""
         return N.hcu_view(self.state, self.layout)
 
     def flushed(self) -> H.HCUState:

@@ -295,15 +295,17 @@ def network_tick(state: NetworkState, conn: Connectivity, ext_rows,
 
 
 def _run_ticks(state: NetworkState, conn: Connectivity, ext, p: BCPNNParams,
-               be, cap_fire, fired: torch.Tensor) -> NetworkState:
+               be, cap_fire, fired: torch.Tensor,
+               tick_kw: dict | None = None) -> NetworkState:
     """The ticks of ext (T, H, A_ext) between one `carry_in` and one
     `carry_out` of the backend: the body of a chunk. Tick k's fired vector
     is copied into ``fired[k]`` ((T, H) int32) as it comes, so nothing of a
-    tick outlives it. Returns state'."""
+    tick outlives it. ``tick_kw`` are `engine.tick`'s sharded hooks
+    (`distributed.make_dist_run`). Returns state'."""
     from repro_torch.core import engine as E
     state = be.carry_in(state)
     for k, e in enumerate(ext):
-        state, f = E.tick(state, conn, e, p, be, cap_fire)
+        state, f = E.tick(state, conn, e, p, be, cap_fire, **(tick_kw or {}))
         fired[k].copy_(f)
     return be.carry_out(state)
 
@@ -470,10 +472,14 @@ class ChunkGraphs:
         return {L: c.graph for (L, _), c in self._chunks.items()}
 
     def run(self, state: NetworkState, conn: Connectivity, ext, p, be,
-            cap_fire, chunk: int):
+            cap_fire, chunk: int, tick_kw: dict | None = None):
         """Replay the chunks of ext (T, H, A_ext), on ``ext``'s device, on
-        ``state``; returns (state, fired (T, H))."""
-        key = (be, cap_fire, p, _identity(state, conn))
+        ``state``; returns (state, fired (T, H)). ``tick_kw`` are
+        `engine.tick`'s sharded hooks, captured with the ticks (the
+        exchange's collective included)."""
+        tick_kw = tick_kw or {}
+        key = (be, cap_fire, p, tuple(sorted(tick_kw.items())),
+               _identity(state, conn))
         if key != self._key:
             self.clear()
             self._key, self._carry, self._conn = key, state, conn
@@ -483,14 +489,14 @@ class ChunkGraphs:
             L = min(chunk, T - i)
             c = self._chunks.get((L, A_ext))
             if c is None:
-                c = self._capture(L, A_ext, p, be, cap_fire)
+                c = self._capture(L, A_ext, p, be, cap_fire, tick_kw)
             c.ext.copy_(ext[i:i + L])
             c.graph.replay()
             out[i:i + L].copy_(c.fired)
         return state, out
 
     def _capture(self, L: int, A_ext: int, p: BCPNNParams, be,
-                 cap_fire) -> _Chunk:
+                 cap_fire, tick_kw: dict) -> _Chunk:
         carry, conn = self._carry, self._conn
         dev = carry.t.device
         n = carry.delay_rows.shape[0]
@@ -505,7 +511,8 @@ class ChunkGraphs:
         with torch.cuda.stream(side):
             graph.capture_begin(pool=self._pool)
             try:
-                final = _run_ticks(carry, conn, ext, p, be, cap_fire, fired)
+                final = _run_ticks(carry, conn, ext, p, be, cap_fire, fired,
+                                   tick_kw)
                 copy_into(carry, final)
                 del final
             except BaseException:

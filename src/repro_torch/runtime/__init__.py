@@ -1,9 +1,9 @@
 """Runtime services of the port: crash recovery with bitwise replay,
 DRAM-retention fault injection and drop-budget health accounting
 (`resilience`), over the host-side restart and straggler machinery
-(`elastic`). Exports the JAX package's `repro.runtime` names; the sharded
-ones (`ElasticRunner`, `remesh`, `remesh_network`) raise until the sharded
-runtime is ported (ROADMAP queue A item 7)."""
+(`elastic`), and the sharded `ElasticRunner` that survives the loss of
+ranks by re-placing whole HCUs (`remesh`, `remesh_network`). Exports the
+JAX package's `repro.runtime` names."""
 from repro_torch.runtime.elastic import (DeviceLoss, InjectedFailure,
                                          RestartableLoop,
                                          RestartBudgetExceeded,

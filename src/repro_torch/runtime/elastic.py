@@ -1,25 +1,30 @@
-"""Failure recovery and straggler accounting, host side (the port of the
-host-side half of `repro.runtime.elastic`).
+"""Elastic re-placement, failure recovery and straggler accounting (the
+port of `repro.runtime.elastic`).
+
+BCPNN makes elasticity unusually clean: every HCU's state is
+self-contained ("no memory consistency problem", paper §II.B), so
+re-scaling is pure data movement — each rank of the new mesh takes its
+whole HCUs from the global state.
 
 Components:
+  remesh(tree, mesh, specs)   this rank's placement of a global tree on a
+                              (new) HCU mesh (`launch.mesh.HcuMesh`)
+  remesh_network              the same for a BCPNN network (state + conn)
   StragglerMonitor            per-step deadline tracking; slow-step log +
                               skip-budget accounting (BCPNN spikes are
                               droppable by design — the paper's queue-drop
                               budget, Fig 7, prices exactly this)
   InjectedFailure             the simulated-fault exception: everything the
                               restart machinery is allowed to swallow
-  DeviceLoss                  a simulated loss of devices (recovered by the
-                              sharded `ElasticRunner`, not ported yet)
+  DeviceLoss                  a simulated loss of ranks (recovered by
+                              `resilience.ElasticRunner`)
   RestartableLoop             run steps with checkpoint/restore + simulated
                               failure injection, bounded by `max_restarts`
 
 Snapshots go through the port's checkpointer (`repro_torch.checkpoint`),
-in the JAX package's on-disk format. `remesh` and `remesh_network` re-place
-state on a device mesh: they belong to the sharded runtime, which the port
-does not have yet (ROADMAP queue A item 7), and raise.
-
-The BCPNN-specific layer (crash-restore-replay over the tick engine,
-DRAM-retention bit flips, the drop-budget health monitor) builds on these
+in the JAX package's on-disk format. The BCPNN-specific layer
+(crash-restore-replay over the tick engine, DRAM-retention bit flips, the
+drop-budget health monitor, the sharded `ElasticRunner`) builds on these
 in `repro_torch.runtime.resilience`.
 """
 from __future__ import annotations
@@ -33,19 +38,27 @@ import torch
 
 from repro_torch.checkpoint import AsyncCheckpointer, restore_latest
 from repro_torch.checkpoint.checkpointer import _flatten, _unflatten
-
-_SHARDED = ("the sharded runtime is not ported to PyTorch yet (ROADMAP "
-            "queue A item 7)")
+from repro_torch.core import distributed as DD
 
 
 def remesh(tree, mesh, specs):
-    """Re-place a tree onto a device mesh: part of the sharded runtime."""
-    raise NotImplementedError(f"remesh: {_SHARDED}")
+    """This rank's placement of a global ``tree`` (a host copy, or tensors
+    on any device) on ``mesh``, under a congruent tree of specs
+    (`distributed.SHARD` / `REPLICATE`) or one spec for every leaf: each
+    sharded leaf cut to the rank's part of its leading axis, new tensors on
+    the mesh's device. Pure data movement, bitwise."""
+    return DD.place(tree, mesh, specs)
 
 
 def remesh_network(state, conn, mesh, axis="hcu"):
-    """Re-place a sharded network onto a mesh: part of the sharded runtime."""
-    raise NotImplementedError(f"remesh_network: {_SHARDED}")
+    """Re-place a BCPNN network (the global state and connectivity) onto
+    ``mesh``: `remesh` with the HCU shard specs and nothing else — no
+    consistency protocol, no replay. Under `lossless_route_config` the
+    trajectory does not depend on where the remesh lands
+    (tests/test_torch_elastic.py). A sharded network is gathered first
+    (`distributed.gather_network`)."""
+    state_specs, conn_specs = DD._shard_specs()
+    return remesh(state, mesh, state_specs), remesh(conn, mesh, conn_specs)
 
 
 def host_copy(tree):
@@ -81,8 +94,9 @@ class DeviceLoss(InjectedFailure):
     class, §II: an HCU tile is self-contained, so losing one is survivable
     by re-placing its hypercolumns). Unlike a plain `InjectedFailure` —
     restore and replay on the SAME devices — recovering from a DeviceLoss
-    requires a remesh (the sharded `ElasticRunner`, ROADMAP queue A item
-    7). The loss is modeled as the trailing `n_lost` devices going away."""
+    requires a remesh: the survivors get all H hypercolumns
+    (`repro_torch.runtime.resilience.ElasticRunner`). The loss is modeled
+    as the trailing `n_lost` ranks of the runner's list going away."""
 
     def __init__(self, n_lost: int = 1, message: str | None = None):
         super().__init__(message or f"injected loss of {n_lost} device(s)")

@@ -35,10 +35,14 @@ runnable machinery over the tick engine, across three fault classes:
    graceful degradation: log + flag in the structured health report (ok /
    over-budget / deadline-missed), never stall or abort the run.
 
+4. Device loss — `ElasticRunner` drives the sharded runtime
+   (`repro_torch.core.distributed`) in chunks, SPMD on every rank of a
+   process group, and recovers from the loss of ranks by restoring the
+   last checkpoint onto the survivors (`elastic.remesh_network`); under
+   `lossless_route_config` the replay is bitwise the uninterrupted run.
+
 Everything here is host-side orchestration over the tick drivers: enabling
-resilience cannot perturb trajectories. The sharded `ElasticRunner` (device
-loss by remeshing) needs the sharded runtime and raises (ROADMAP queue A
-item 7).
+resilience cannot perturb trajectories.
 """
 from __future__ import annotations
 
@@ -48,14 +52,20 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import AsyncCheckpointer, restore_latest
+from repro_torch.checkpoint.checkpointer import _unflatten
+from repro_torch.core import distributed as DD
 from repro_torch.core import network as N
 from repro_torch.core import queues, rng
 from repro_torch.core.params import BCPNNParams
-from repro_torch.runtime.elastic import (InjectedFailure,
+from repro_torch.launch.mesh import (_new_group, elastic_device_count,
+                                     make_elastic_mesh)
+from repro_torch.runtime.elastic import (DeviceLoss, InjectedFailure,
                                          RestartBudgetExceeded,
-                                         StragglerMonitor, host_copy)
+                                         StragglerMonitor, host_copy,
+                                         remesh_network)
 
 log = logging.getLogger("repro_torch.resilience")
 
@@ -479,12 +489,296 @@ class ResilientRunner:
         return fired, self.monitor.report(restarts=self.restarts)
 
 
-class ElasticRunner:
-    """ResilientRunner's crash recovery lifted onto the sharded path,
-    surviving device loss by remeshing. The port has no sharded runtime yet
-    (ROADMAP queue A item 7): constructing one raises."""
+# ---------------------------------------------------------------------------
+# fault class 4: device loss — degraded-mode sharded runtime
+# ---------------------------------------------------------------------------
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("ElasticRunner: the sharded runtime is not "
-                                  "ported to PyTorch yet (ROADMAP queue A "
-                                  "item 7)")
+class ElasticRunner:
+    """ResilientRunner's crash recovery lifted onto the sharded path
+    (`distributed.make_dist_run` over an HCU mesh), surviving the loss of
+    ranks by re-placing their HCUs.
+
+        sim = Simulator(p, key=0)                       # H hypercolumns
+        runner = ElasticRunner(sim, "ckpt", chunk_ticks=64,
+                               fail_injector=lambda c: 2 if c == 3 else 0)
+        fired, health = runner.run(ext)                 # loses 2 ranks
+
+    Every rank of ``group`` (the default process group unless given) runs
+    it, SPMD, on a Simulator holding the global network, with the same
+    input, injectors and checkpoint directory; ``devices`` are the ranks
+    of the group taking part (default: all). The run is cut into
+    ``chunk_ticks``-tick sharded runs with async checkpoints of the FULL
+    logical state every ``save_every`` chunks, written by the first rank.
+    ``fail_injector(chunk_index)`` may return a truthy int k (raised as
+    `DeviceLoss(k)`: the trailing k ranks go away for good, and `run`
+    re-raises it on them) or True (a plain `InjectedFailure`: a crash, same
+    ranks). Recovery in both cases: restore the newest verified checkpoint
+    (`repro_torch.checkpoint`, checksum fall-back included) on every
+    surviving rank, build the largest whole-HCU-divisible mesh over the
+    survivors (`launch.mesh.make_elastic_mesh`), re-derive ``h_local`` and
+    the `RouteConfig` for it, build its driver (cached per rank count),
+    re-place state and connectivity (`remesh_network`) and replay from the
+    restored tick.
+
+    The replayed trajectory is bitwise the uninterrupted one: the sharded
+    tick does not depend on the mesh size under the default
+    `lossless_route_config` (per-HCU RNG folds global ids, the exchange
+    never drops, padded route slots carry no trajectory bits). A lossy
+    ``route_config(p, h_local, ndev) -> RouteConfig`` (e.g.
+    `default_route_config`) trades that for Fig 7-priced fabric drops;
+    `HealthMonitor.set_mesh` prices them at each placement.
+
+    ``rescale(chunk_index) -> int | None`` models graceful elasticity: a
+    rank-count target applied at the chunk boundary as pure data movement
+    (the live state gathered and re-placed, no restore, no replay). Ranks
+    outside the current mesh idle but stay in step: they take part in the
+    gathers (checkpoints, rescales, each chunk's fired rows and drop
+    counters) through the group of the surviving ranks, so every surviving
+    rank returns the whole (T, H) history and the same report, and ends
+    holding the global final state in ``sim``. The drop counters are rank
+    0's, what the JAX package reads back from a sharded state.
+
+    ``recoveries`` records one dict per failure (kind, restored tick,
+    surviving rank count, recovery wall seconds). ``axis`` names the mesh's
+    one axis, as in the JAX package.
+    """
+
+    def __init__(self, sim, ckpt_dir: str, *, chunk_ticks: int = 64,
+                 save_every: int = 1, keep_last: int = 3,
+                 fail_injector=None, rescale=None, max_restarts: int = 8,
+                 devices=None, axis: str = "hcu", route_config=None,
+                 monitor: HealthMonitor | None = None, group=None):
+        if sim.merged:
+            raise NotImplementedError(
+                "elastic runtime: merged mode has no sharded path "
+                "(Simulator.run_sharded)")
+        if sim.layout is not None:
+            raise NotImplementedError(
+                "elastic runtime: blocked plane layouts have no sharded "
+                "path (Simulator.run_sharded)")
+        self.sim = sim
+        self.group = dist.group.WORLD if group is None else group
+        world = dist.get_world_size(self.group)
+        self.devices = (list(devices) if devices is not None
+                        else list(range(world)))
+        self.me = dist.get_rank(self.group)
+        if self.me not in self.devices:
+            raise ValueError(f"rank {self.me} is not among the runner's "
+                             f"ranks {self.devices}")
+        # the first rank writes the checkpoints (losses take trailing ranks)
+        self.ckpt = (AsyncCheckpointer(ckpt_dir, keep_last=keep_last)
+                     if self.me == self.devices[0] else None)
+        self.ckpt_dir = ckpt_dir
+        self.chunk_ticks = int(chunk_ticks)
+        self.save_every = int(save_every)
+        self.fail_injector = fail_injector
+        self.rescale = rescale
+        self.max_restarts = int(max_restarts)
+        self.axis = axis
+        self.route_config = route_config
+        self.monitor = monitor if monitor is not None else HealthMonitor(
+            sim.p, n_hcu=sim.n_hcu)
+        self.restarts = 0
+        self.recoveries: list[dict] = []
+        self._alive = (self.group if len(self.devices) == world
+                       else self._group_of(self.devices))
+        self._lowered: dict[int, tuple] = {}
+
+    # -- groups / meshes ----------------------------------------------------
+    def _group_of(self, ranks):
+        """A group of ``ranks`` of the runner's group, made by every
+        surviving rank (`launch.mesh._new_group`)."""
+        return _new_group(self.group, ranks)
+
+    def _usable(self, limit: int | None = None) -> int:
+        n = len(self.devices) if limit is None else min(len(self.devices),
+                                                        int(limit))
+        return elastic_device_count(self.sim.n_hcu, n)
+
+    def _lower(self, ndev: int):
+        """(mesh, rc, driver, graphs) for ``ndev`` ranks; mesh and driver
+        are None on a rank outside the mesh. Cached per rank count: losses
+        take the trailing ranks, so the ndev-prefix mesh stays valid."""
+        if ndev not in self._lowered:
+            sim = self.sim
+            mesh = make_elastic_mesh(sim.n_hcu, self.devices[:ndev],
+                                     group=self.group, device=sim.device)
+            h_local = sim.n_hcu // ndev
+            rc = (self.route_config(sim.p, h_local, ndev)
+                  if self.route_config is not None
+                  else DD.lossless_route_config(sim.p, h_local))
+            fn = None if mesh is None else DD.make_dist_run(
+                mesh, sim.p, rc, eager=sim.eager, worklist=sim.worklist,
+                fused=sim.fused, fused_cols=sim.fused_cols)
+            self._lowered[ndev] = (mesh, rc, fn, N.ChunkGraphs())
+        return self._lowered[ndev]
+
+    def _place(self, host, ndev: int):
+        """Remap all H hypercolumns onto the ndev-rank mesh: this rank's
+        (state, conn), or (None, None) outside it."""
+        mesh, rc, _, _ = self._lower(ndev)
+        self.monitor.set_mesh(ndev, rc)
+        if mesh is None:
+            return None, None
+        return remesh_network(host, self._conn_host, mesh)
+
+    # -- gathers over the surviving ranks -----------------------------------
+    def _collect(self, local, piece, dtype, ndev: int) -> torch.Tensor:
+        """(ndev,) + piece: piece r broadcast from the mesh's rank r to
+        every surviving rank."""
+        buf = torch.empty((ndev,) + tuple(piece), dtype=dtype,
+                          device=self.sim.device)
+        for r in range(ndev):
+            if self.me == self.devices[r]:
+                buf[r].copy_(local)
+            dist.broadcast(buf[r], dist.get_global_rank(self.group,
+                                                        self.devices[r]),
+                           group=self._alive)
+        return buf
+
+    def _global(self, state, ndev: int):
+        """A host copy of the global state from the mesh's slices, on every
+        surviving rank; replicated leaves (time, key, drop counters) are
+        the mesh's rank 0's."""
+        locals_ = ([None] * len(self._specs) if state is None
+                   else [x for x, _ in DD._spec_pairs(
+                       state, DD._shard_specs()[0])])
+        out = []
+        for (tmpl, spec), x in zip(self._specs, locals_, strict=True):
+            if spec == DD.REPLICATE:
+                out.append(self._collect(x, tmpl.shape, tmpl.dtype, 1)[0]
+                           .cpu())
+            else:
+                piece = (tmpl.shape[0] // ndev,) + tuple(tmpl.shape[1:])
+                out.append(self._collect(x, piece, tmpl.dtype, ndev)
+                           .reshape(tmpl.shape).cpu())
+        return _unflatten(self._template, iter(out))
+
+    def _fired(self, fired, step: int, ndev: int) -> np.ndarray:
+        k = self.sim.n_hcu // ndev
+        buf = self._collect(fired, (step, k), torch.int32, ndev)
+        return buf.permute(1, 0, 2).reshape(step, ndev * k).cpu().numpy()
+
+    def _drops(self, state) -> dict:
+        c = None if state is None else torch.stack(
+            [state.drops_in, state.drops_fire, state.drops_route])
+        d_in, d_fire, d_route = self._collect(c, (3,), torch.int32,
+                                              1)[0].tolist()
+        return {"in": d_in, "fire": d_fire, "route": d_route}
+
+    # -- driver -------------------------------------------------------------
+    def run(self, ext, n_ticks: int | None = None):
+        """Run ``ext`` (the global staged (T, H, A_ext) array or tensor,
+        iterable of frames, or callable ext_fn(t) with ``n_ticks``) to
+        completion through crashes, rank losses and graceful rescales.
+        Returns (fired history (T, H) int32 numpy, health report dict) on
+        every surviving rank; raises `DeviceLoss` on a rank that is lost."""
+        sim = self.sim
+        sim._unshard()
+        t0 = int(sim.state.t)
+        if callable(ext):
+            ext = N.stage_external(ext, n_ticks, t0=t0, device="cpu")
+        else:
+            ext = N.stage_external(ext, device="cpu")
+        if n_ticks is not None:
+            ext = ext[:n_ticks]
+        T = int(ext.shape[0])
+        fired = np.full((T, sim.n_hcu), -1, np.int32)
+        initial = host_copy(sim.state)
+        self._template = initial
+        self._specs = list(DD._spec_pairs(initial,
+                                               DD._shard_specs()[0]))
+        self._conn_host = host_copy(sim.conn)
+        sim.state = None                 # the ranks hold their slices
+        ndev = self._usable()
+        state, conn = self._place(initial, ndev)
+        self.monitor.begin(N.drop_counters(initial))
+        done, chunks_done = 0, 0
+        while done < T:
+            step = min(self.chunk_ticks, T - done)
+            chunk = done // self.chunk_ticks
+            try:
+                if self.rescale is not None:
+                    want = self.rescale(chunk)
+                    if want and self._usable(want) != ndev:
+                        # graceful elasticity: pure data movement at a chunk
+                        # boundary — no restore, no replay, bits unchanged
+                        host = self._global(state, ndev)
+                        ndev = self._usable(want)
+                        state, conn = self._place(host, ndev)
+                        log.info("rescaled onto %d rank(s) at tick %d",
+                                 ndev, t0 + done)
+                if self.fail_injector is not None:
+                    lost = self.fail_injector(chunk)
+                    if lost:
+                        if lost is True:
+                            raise InjectedFailure(
+                                f"injected crash at tick {t0 + done}")
+                        raise DeviceLoss(int(lost))
+                self.monitor.chunk_start(step)
+                mesh, _, fn, graphs = self._lower(ndev)
+                f = None
+                if mesh is not None:
+                    k = sim.n_hcu // ndev
+                    state, f = fn(state, conn, ext[done:done + step,
+                                                   mesh.rank * k:
+                                                   (mesh.rank + 1) * k],
+                                  chunk=self.chunk_ticks, graphs=graphs)
+                fired[done:done + step] = self._fired(f, step, ndev)
+                done += step
+                chunks_done += 1
+                self.monitor.chunk_end(step, self._drops(state))
+                if chunks_done % self.save_every == 0:
+                    # full logical arrays — restorable onto ANY future mesh
+                    host = self._global(state, ndev)
+                    if self.ckpt is not None:
+                        self.ckpt.save_async(t0 + done, _ckpt_tree(host))
+            except InjectedFailure as e:
+                self.restarts += 1
+                if self.restarts > self.max_restarts:
+                    raise RestartBudgetExceeded(
+                        f"{self.restarts - 1} restarts exhausted the budget "
+                        f"of {self.max_restarts}") from e
+                rec_start = time.monotonic()
+                state = conn = None
+                if isinstance(e, DeviceLoss):
+                    if e.n_lost >= len(self.devices):
+                        raise RestartBudgetExceeded(
+                            "all devices lost — nothing to remesh onto"
+                        ) from e
+                    gone = self.devices[len(self.devices) - e.n_lost:]
+                    del self.devices[len(self.devices) - e.n_lost:]
+                    if self.me in gone:
+                        raise
+                    self._alive = self._group_of(self.devices)
+                if self.ckpt is not None:
+                    self.ckpt.wait()
+                dist.barrier(group=self._alive)   # the checkpoint is on disk
+                restored, t_saved = restore_latest(
+                    self.ckpt_dir, _shape_template(initial))
+                if restored is None:
+                    host, done = initial, 0
+                else:
+                    host, done = restored, int(t_saved) - t0
+                ndev = self._usable()
+                state, conn = self._place(host, ndev)
+                del host, restored
+                rec = {"kind": ("device-loss" if isinstance(e, DeviceLoss)
+                                else "crash"),
+                       "restored_tick": t0 + done,
+                       "devices": ndev,
+                       "recovery_s": time.monotonic() - rec_start}
+                self.recoveries.append(rec)
+                log.warning("restart %d/%d (%s): restored t=%d onto %d "
+                            "rank(s) in %.3f s", self.restarts,
+                            self.max_restarts, rec["kind"], t0 + done, ndev,
+                            rec["recovery_s"])
+        if self.ckpt is not None:
+            self.ckpt.wait()
+        # hand the global final state back to the facade
+        final = self._global(state, ndev)
+        sim.graphs.clear()
+        to_dev = lambda a: a.to(sim.device)
+        sim.state = N.tree_map(to_dev, final)
+        sim.conn = N.tree_map(to_dev, self._conn_host)
+        return fired, self.monitor.report(restarts=self.restarts)

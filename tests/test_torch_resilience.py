@@ -5,9 +5,8 @@ math (`repro_torch.core.queues`), on the CPU.
   through `ResilientRunner` on the four head fixtures (lazy / merged x
   dense / worklist), the restart from scratch, the restart budgets, bit
   flips, retention-fault scope, the engine on corrupted timestamps, and
-  the health monitor's verdicts (the per-class case with a stand-in for
-  the sharded route configuration, which the port does not have); one for
-  each case of tests/test_queues.py.
+  the health monitor's verdicts (the per-class case priced at a
+  `distributed.RouteConfig`); one for each case of tests/test_queues.py.
 * Against the JAX package, in one child process (tests/torch_jax_ref.py):
   `flip_bits` in every mode with and without `bit_mask`, and
   `inject_retention_faults` on a run's state in every mode, bit for bit;
@@ -18,13 +17,13 @@ math (`repro_torch.core.queues`), on the CPU.
   words, the port's `BLOCK_WORDS` set to the same).
 * The names: `repro_torch.core.__all__` equals `repro.core.__all__`, and
   `repro_torch.runtime` / `repro_torch.experiments` export the JAX
-  package's names (read with `ast` from the JAX files); the sharded parts
-  raise, naming ROADMAP queue A item 7.
+  package's names (read with `ast` from the JAX files). The sharded
+  `ElasticRunner`, `remesh` and `remesh_network` are held in
+  tests/test_torch_elastic.py.
 * `cuda`-marked: the crash replay through the CUDA graphs, which survive
   the restores, and the fault draws on the card equal to the CPU's.
 """
 import ast
-import collections
 import pathlib
 
 import numpy as np
@@ -43,11 +42,11 @@ from repro_torch.core.queues import (drop_probability_per_ms,
                                      expected_drops_per_month,
                                      min_queue_for_monthly_drop_budget,
                                      p_x_or_more)
-from repro_torch.runtime import (ElasticRunner, HealthMonitor,
-                                 InjectedFailure, ResilientRunner,
-                                 RestartableLoop, RestartBudgetExceeded,
-                                 flip_bits, inject_retention_faults, remesh,
-                                 remesh_network)
+from repro_torch.core.distributed import RouteConfig
+from repro_torch.runtime import (HealthMonitor, InjectedFailure,
+                                 ResilientRunner, RestartableLoop,
+                                 RestartBudgetExceeded, flip_bits,
+                                 inject_retention_faults)
 from repro_torch.runtime.resilience import IJ_PLANES
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -522,13 +521,9 @@ def test_health_monitor_deadline_missed():
     assert mon.report()["status"] == "over-budget"
 
 
-# the capacities `set_mesh` reads of the JAX package's RouteConfig
-Route = collections.namedtuple("Route", "cap_fire cap_route")
-
-
 def test_health_monitor_per_class_budgets():
     mon = HealthMonitor(_p(), target_us_per_tick=1e9)
-    mon.set_mesh(2, Route(cap_fire=2, cap_route=32))
+    mon.set_mesh(2, RouteConfig(cap_fire=2, cap_route=32))
     mon.begin({"in": 0, "fire": 0, "route": 0})
     mon.chunk_start(10)
     mon.chunk_end(10, {"in": 0, "fire": 0, "route": 0})
@@ -637,16 +632,6 @@ def test_exports_equal_the_jax_packages(pkg):
     assert mod.__all__ == _jax_all(f"{pkg}/__init__.py")
     for name in mod.__all__:
         assert getattr(mod, name) is not None
-
-
-@pytest.mark.parametrize("call", [
-    lambda: ElasticRunner(None, "ckpt"),
-    lambda: remesh({}, None, None),
-    lambda: remesh_network(None, None, None)],
-    ids=["ElasticRunner", "remesh", "remesh_network"])
-def test_sharded_parts_raise(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 7"):
-        call()
 
 
 def test_injected_failure_is_the_only_recovered_error(tmp_path):

@@ -159,9 +159,14 @@ def test_select_backend(p, kw, want):
 
 @pytest.mark.parametrize("method", ["run_sharded"])
 def test_unported_simulator_methods_raise(method):
-    sim = Simulator(tiny_scale(4, 64, 16), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 7"):
-        getattr(sim, method)("ckpt")
+    """What the port's sharded runtime does not run raises, with the JAX
+    package's message: a merged Simulator's `run_sharded` (the sharded
+    runtime itself is held in tests/test_torch_distributed.py)."""
+    p = tiny_scale(4, 64, 16)
+    sim = Simulator(p, device="cpu", merged=True)
+    with pytest.raises(NotImplementedError, match="merged mode is not "
+                       "supported by the sharded runtime"):
+        getattr(sim, method)(torch.full((1, 4, 8), p.rows, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("merged", [False, True], ids=["lazy", "merged"])

@@ -69,14 +69,20 @@ np.savez(sys.argv[2], **{k: np.asarray(v) for k, v in OUT.items()})
 """
 
 
-def run_jax(body: str, inputs: dict | None = None, timeout: float = 120.0) -> dict:
-    """Run ``body`` against the JAX package in a child; return its OUT."""
+def run_jax(body: str, inputs: dict | None = None, timeout: float = 120.0,
+            n_devices: int = 1) -> dict:
+    """Run ``body`` against the JAX package in a child; return its OUT.
+    ``n_devices`` > 1 forces that many host devices in the child (the JAX
+    package's sharded runtime needs a mesh of them)."""
     with tempfile.TemporaryDirectory() as tmp:
         src, dst = os.path.join(tmp, "in.npz"), os.path.join(tmp, "out.npz")
         np.savez(src, **(inputs or {}))
         script = _PRELUDE + textwrap.dedent(body) + _EPILOGUE
         env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
                "JAX_PLATFORMS": "cpu"}
+        if n_devices > 1:
+            env["XLA_FLAGS"] = ("--xla_force_host_platform_device_count="
+                                f"{n_devices}")
         r = subprocess.run([sys.executable, "-c", script, src, dst], env=env,
                            capture_output=True, text=True, timeout=timeout)
         if r.returncode != 0:
