@@ -108,14 +108,18 @@ toolkit. Phases, in order; any failure exits non-zero:
                hd 128, causal) and one gemma2-9b layer (B 1, H 16, Kv 8,
                Sq = 4608 slots, hd 256, softcap 50, window 4096, scale
                1/16), each in bf16 (`flash_mma_kernel`, tensor cores) and
-               float32 (`flash_fwd_kernel`, CUDA cores): bf16 rtol 8e-3
-               (one bf16 ulp), atol 1e-4; float32 rtol = atol = 2e-5; the
-               wrapper's record of the kernel it took is checked. Each
-               timed as in phase 3; at the qwen2 shape also
+               float32 (`flash_fwd_kernel`, CUDA cores); then in bf16 the
+               phase 10 prefills: zamba2-7b's shared block (H = Kv = 32,
+               hd 112), qwen3-moe (H 64, Kv 4), llama-3.2-vision (H 32,
+               Kv 8, hd 128), all B 4, Sq 1024, 1152 slots, and whisper's
+               decoder (H = Kv = 20, hd 64, Sq 384, 512 slots): bf16 rtol
+               8e-3 (one bf16 ulp), atol 1e-4; float32 rtol = atol = 2e-5;
+               the wrapper's record of the kernel it took is checked. Each
+               timed as in phase 3, and beside
                `torch.nn.functional.scaled_dot_product_attention` with
-               enable_gqa=True on (4, 12, 1024, 128) q and (4, 2, 1024, 128)
-               k / v, in bf16 and float32 (the library yardstick; the port
-               never calls it).
+               enable_gqa=True on contiguous (B, H, Sq, hd) / (B, Kv,
+               kv_len, hd) copies at every shape without softcap or window
+               (the library yardstick; the port never calls it).
   7. lm      — the LM fixture (tests/fixtures/lm_serve_smoke.npz, qwen2-1.5b
                and gemma2-9b smoke configs at float32 compute) served on the
                card through the kernel: prefill logits within atol 2e-5 of
@@ -135,6 +139,16 @@ toolkit. Phases, in order; any failure exits non-zero:
                per prefill wave, the flash kernel's share of a prefill's
                device time (torch.profiler), ms per decode step, tokens/s
                and peak GiB.
+  7b. lm families — tests/fixtures/lm_families_smoke.npz (the smoke
+               configs of qwen3-moe, llama4-maverick, zamba2, xlstm,
+               llama-3.2-vision and whisper at float32 compute, written by
+               tests/fixtures/capture_lm_families.py) on the card through
+               the kernel, TF32 off: prefill logits within the CPU test's
+               atol of the JAX package's (2e-5; zamba2 1e-4, xlstm 1e-3),
+               8 greedy tokens of each of two 128-token prompts equal (the
+               engine for the token-only families, `generate` with
+               patch_embeds / frames for the others), and flash launched
+               once per causal self-attention layer per prefill.
   8. recall  — resilience, the associative-memory protocol and recall
                serving (`repro_torch.runtime`, `repro_torch.experiments`,
                `repro_torch.launch.serve_bcpnn`):
@@ -204,10 +218,35 @@ toolkit. Phases, in order; any failure exits non-zero:
                combinations: kernels 1-5) under the fixtures' contract. 9e.
                `ElasticRunner` at test_scale(8, 64, 16) losing ranks 2-3
                before chunk 3: the survivors bit for bit the local run.
- 10. report  — one JSON line of the kernels (with each BCPNN kernel's
+ 10. families — the MoE, hybrid, SSM, VLM and audio families at full
+               width (random weights from seed 0, float32 parameters, bf16
+               compute, attn_impl="pallas_flash"), one model at a time,
+               each freed before the next (FAMILY_RUNS): qwen3-moe-235b-a22b
+               cut from 94 to 2 layers (one layer's experts are 9.7 GB),
+               zamba2-7b, xlstm-125m (also a queue alternating 1024- and
+               512-token prompts, which must be served in equal-length
+               waves: order 0, 2, 4, 6, 1, 3, 5, 7) through
+               `ServingEngine(4, max_len=1152)`, 8 requests of 1024 + 32
+               greedy tokens; llama-3.2-vision-11b (patch_embeds (4, 1601,
+               1280)) and whisper-large-v3 (frames (4, 1500, 1280), 384 +
+               32 tokens, max_len 512) through `generate`. The launch
+               counters are set to 0 before each run: flash must launch
+               once per causal self-attention layer per prefill (2, 13, 0,
+               32, 32), every time `flash_mma_kernel`, and no BCPNN kernel;
+               every token in the vocabulary. Prints parameters and init
+               s, prefill ms per wave and decode ms per step (host clock,
+               synchronised at both ends), tokens/s, peak GiB (above what
+               earlier phases still hold, and with it), qwen3-moe's
+               drop_frac and lb_loss of its first `moe_ffn` call at the
+               prefill shape, and one profiled prefill's device time by
+               kernel with flash's share (its launches counted again).
+ 11. report  — one JSON line of the kernels (with each BCPNN kernel's
                launches on the phase 8 paths, counted at capture, and on
-               the sharded paths of phase 9 under ``launches_by_path``),
-               then the last line {"ok": true, "device": {...}}.
+               the sharded paths of phase 9 under ``launches_by_path``;
+               flash's launches are the LM serving runs' of phases 7 and
+               10, by model under ``launches_by_path``, and its numbers at
+               every phase 6 shape under ``by_shape``), then the last line
+               {"ok": true, "device": {...}}.
 
 It imports the port only (never JAX or the JAX package) and exits non-zero
 without printing a result where no CUDA device is present.
@@ -1357,11 +1396,28 @@ QWEN2 = (4, 12, 2, 1024, 1152, 128)
 GEMMA2 = (1, 16, 8, 4608, 4608, 256)
 QWEN2_KW = dict(scale=128 ** -0.5, causal=True, kv_len=1024)
 GEMMA2_KW = dict(scale=1 / 16, causal=True, window=4096, softcap=50.0)
+
+
+def prefill_kw(hd, kv_len):
+    return dict(scale=hd ** -0.5, causal=True, kv_len=kv_len)
+
+
 FLASH_SHAPES = {
     "qwen2-1.5b prefill bf16": (*QWEN2, "bfloat16", QWEN2_KW),
     "qwen2-1.5b prefill f32": (*QWEN2, "float32", QWEN2_KW),
     "gemma2-9b layer bf16": (*GEMMA2, "bfloat16", GEMMA2_KW),
     "gemma2-9b layer f32": (*GEMMA2, "float32", GEMMA2_KW),
+    # the phase 10 prefills: zamba2's shared block (MHA, hd 112, run as
+    # 128 with zero-filled dims), qwen3-moe (G 16), llama-3.2-vision's
+    # self-attention (G 4), whisper's decoder self-attention (MHA, hd 64)
+    "zamba2-7b shared block bf16": (4, 32, 32, 1024, 1152, 112, "bfloat16",
+                                    prefill_kw(112, 1024)),
+    "qwen3-moe prefill bf16": (4, 64, 4, 1024, 1152, 128, "bfloat16",
+                               prefill_kw(128, 1024)),
+    "llama-3.2-vision prefill bf16": (4, 32, 8, 1024, 1152, 128, "bfloat16",
+                                      prefill_kw(128, 1024)),
+    "whisper decoder prefill bf16": (4, 20, 20, 384, 512, 64, "bfloat16",
+                                     prefill_kw(64, 384)),
 }
 # (rtol, atol) of the kernel against its plain version: both compute in
 # float32, so bf16 outputs differ by at most one rounding (one ulp, < 2^-7
@@ -1394,8 +1450,9 @@ def sdpa_ms(q, k, v, kw, flush):
 
 def phase_flash(dev):
     """Phase 6: the flash kernels against their plain version, then timed,
-    at the qwen2-1.5b prefill and one gemma2-9b layer. Returns the report
-    entry of the qwen2 bf16 call (the main path's)."""
+    at every shape of FLASH_SHAPES. Returns the report entry of the qwen2
+    bf16 call (phase 7's main path), with every shape's numbers under
+    ``by_shape``."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     flush = torch.ones(64 << 20, dtype=torch.uint8, device=dev)
@@ -1423,8 +1480,9 @@ def phase_flash(dev):
         ms = time_cuda(lambda: FA.flash_attention_kernel(q, k, v, **kw), flush)
         plain_ms = time_cuda(lambda: FA.flash_attention_plain(q, k, v, **kw),
                              flush)
-        lib_ms = sdpa_ms(q, k, v, kw, flush) if name.startswith("qwen2") \
-            else None
+        # SDPA has no softcap and no window
+        lib_ms = (sdpa_ms(q, k, v, kw, flush)
+                  if "softcap" not in kw and "window" not in kw else None)
         # q and o once; k and v once per kv head, only up to kv_len: later
         # cache slots are masked out and never read
         kv_rows = min(kw.get("kv_len", Skv), Skv)
@@ -1441,7 +1499,10 @@ def phase_flash(dev):
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
               f"{nbytes} bytes, {nops} flop, bound {e['bound_ms']:.4f} ms "
               f"({e['bound_by']})")
-        report = report or e
+        report = report or dict(e, by_shape={})
+        report["by_shape"][name] = {k: e[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
         del q, k, v
     torch.cuda.empty_cache()
     return report
@@ -1647,6 +1708,288 @@ def phase_lm(dev, smi):
     del model, eng, caches, logits
     torch.cuda.empty_cache()
     return counts["flash_attention"]
+
+
+FAMILY_FIXTURE_ARCHS = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
+                        "zamba2-7b", "xlstm-125m", "llama-3.2-vision-11b",
+                        "whisper-large-v3")
+# float32 prefill logits against the JAX package's, as on the CPU
+# (tests/test_torch_serve.py: FAMILY_FIXTURE_ATOL)
+FAMILY_FIXTURE_ATOL = {"zamba2-7b": 1e-4, "xlstm-125m": 1e-3}
+FAMILY_FIXTURE_DEFAULT_ATOL = 2e-5
+# the kinds whose causal self-attention prefill takes the flash kernel
+FLASH_KINDS = ("attn", "attn_local", "attn_moe", "shared_attn", "dec_cross")
+
+
+def flash_per_prefill(cfg):
+    from repro_torch.models.transformer import layer_kinds
+    return sum(k in FLASH_KINDS for k in layer_kinds(cfg))
+
+
+def memory_batch(tokens, extra, dev):
+    """{"tokens", and "patch_embeds" / "frames" where the family has one}."""
+    import torch
+    batch = {"tokens": torch.as_tensor(tokens).long().to(dev)}
+    batch.update({k: torch.as_tensor(v).to(dev) for k, v in extra.items()})
+    return batch
+
+
+def phase_lm_families_fixture(dev):
+    """Phase 7b: tests/fixtures/lm_families_smoke.npz (the six MoE, SSM /
+    hybrid, VLM and audio smoke configs, float32 compute, flash on) served
+    on the card through the kernel: prefill logits within the CPU test's
+    atol of the JAX package's, greedy tokens equal (the engine for the
+    token-only families, `generate` with the memory for the others), and
+    the flash kernel launched once per causal self-attention layer per
+    prefill."""
+    import dataclasses
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Request, ServingEngine
+    from repro_torch.train.serve_step import generate
+    d = dict(np.load(ROOT / "tests" / "fixtures" / "lm_families_smoke.npz"))
+    prompts = d["prompts"]
+    for arch in FAMILY_FIXTURE_ARCHS:
+        pre = f"{arch}/param"
+        flat = {k[len(pre):]: (d[k].astype(np.uint32) << 16).view(np.float32)
+                for k in d if k.startswith(pre)}
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  compute_dtype="float32",
+                                  attn_impl="pallas_flash")
+        model = convert.lm_model_from_numpy(flat, cfg, dev)
+        extra = {k: d[f"{arch}/{k}"] for k in ("patch_embeds", "frames")
+                 if f"{arch}/{k}" in d}
+        batch = memory_batch(prompts, extra, dev)
+        reset_launches()
+        with torch.no_grad():
+            logits, _ = model.prefill(batch, model.init_cache(len(prompts), 256))
+        gap = float(np.abs(logits.float().cpu().numpy()
+                           - d[f"{arch}/logits"]).max())
+        atol = FAMILY_FIXTURE_ATOL.get(arch, FAMILY_FIXTURE_DEFAULT_ATOL)
+        if not gap <= atol:
+            fail(f"LM families fixture {arch}: prefill logits gap {gap} "
+                 f"> {atol}")
+        if extra:
+            toks = generate(model, batch, 8, 256).cpu().numpy()
+        else:
+            eng = ServingEngine(model, len(prompts), 256)
+            for rid, p in enumerate(prompts):
+                eng.submit(Request(rid, p, 8))
+            toks = np.array([r.out for r in
+                             sorted(eng.run(), key=lambda r: r.rid)])
+        if not np.array_equal(toks, d[f"{arch}/tokens"]):
+            fail(f"LM families fixture {arch}: greedy tokens differ from "
+                 f"the JAX package's: {toks.tolist()}")
+        n = read_launches()["flash_attention"]
+        want = 2 * flash_per_prefill(cfg)
+        if n != want:
+            fail(f"LM families fixture {arch}: flash launched {n} times, "
+                 f"expected {want}")
+        print(f"LM families fixture {arch} on the card: prefill logits "
+              f"within {gap:.3g} (atol {atol}) of the JAX package's, "
+              f"{toks.size} greedy tokens equal, {n} flash launches")
+        del model
+
+
+# phase 10: arch -> (entry point, requests, prompt tokens, new tokens,
+# max_len, layers kept (None: all), flash launches a prefill); random
+# weights from seed 0, float32 parameters, bf16 compute, pallas_flash
+FAMILY_RUNS = {
+    "qwen3-moe-235b-a22b": ("engine", 8, 1024, 32, 1152, 2, 2),
+    "zamba2-7b": ("engine", 8, 1024, 32, 1152, None, 13),
+    "xlstm-125m": ("engine", 8, 1024, 32, 1152, None, 0),
+    "llama-3.2-vision-11b": ("generate", 4, 1024, 32, 1152, None, 32),
+    "whisper-large-v3": ("generate", 4, 384, 32, 512, None, 32),
+}
+FAMILY_SLOTS = 4
+# xlstm's second queue: prompts alternating 1024 and 512 tokens, grouped
+# into equal-length waves
+XLSTM_ALTERNATING = (1024, 512)
+
+
+def run_engine(model, cfg, prompts, new, max_len, pre_ms, dec_ms):
+    """Serve ``prompts`` through ServingEngine(FAMILY_SLOTS, max_len);
+    returns (completed requests in completion order, wall s)."""
+    from repro_torch.launch.serve import Request, ServingEngine
+    eng = ServingEngine(model, FAMILY_SLOTS, max_len)
+    eng.prefill = timed(eng.prefill, pre_ms)
+    eng.decode = timed(eng.decode, dec_ms)
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid, p, new))
+    t0 = time.perf_counter()
+    done = eng.run()
+    return done, time.perf_counter() - t0
+
+
+def moe_aux_of_first_call(model, batch, caches):
+    """drop_frac and lb_loss of the first `moe_ffn` call of a prefill."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    orig, seen = moe_mod.moe_ffn, []
+
+    def first(params, x, cfg):
+        out, aux = orig(params, x, cfg)
+        seen.append((tuple(x.shape), float(aux["drop_frac"]),
+                     float(aux["lb_loss"]), moe_mod.capacity(cfg, x.shape[0]
+                                                             * x.shape[1])))
+        return out, aux
+    moe_mod.moe_ffn = first
+    try:
+        with torch.no_grad():
+            model.prefill(batch, caches)
+    finally:
+        moe_mod.moe_ffn = orig
+    return seen[0]
+
+
+def phase_family(arch, dev, smi):
+    """One phase 10 model: build it at full width, serve its traffic, check
+    the flash launches and the outputs, profile one prefill. Returns the
+    flash launches of the run."""
+    import dataclasses
+    import gc
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.transformer import Model
+    from repro_torch.train.serve_step import generate
+    how, n_req, plen, new, max_len, layers, per_prefill = FAMILY_RUNS[arch]
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas_flash")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if flash_per_prefill(cfg) != per_prefill:
+        fail(f"{arch}: {flash_per_prefill(cfg)} flash layers, the table "
+             f"says {per_prefill}")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30   # by earlier phases
+    t0 = time.perf_counter()
+    model = Model(cfg, seed=0)                  # the default device: CUDA
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in model.parameters())
+    print(f"{arch}: {cfg.n_layers} layers{'' if layers is None else ' (cut)'}"
+          f", d_model {cfg.d_model}, {cfg.n_heads} heads (kv {cfg.n_kv}), "
+          f"head_dim {cfg.head_dim}, vocab {cfg.vocab}: {n_params} parameters "
+          f"({n_params * 4 / 1e9:.2f} GB float32), init {init_s:.2f} s")
+    gen = np.random.default_rng(0)
+    tgen = torch.Generator(device=dev)
+    tgen.manual_seed(0)
+    pre_ms, dec_ms = [], []
+    reset_launches()
+    if how == "engine":
+        prompts = [gen.integers(0, cfg.vocab, plen) for _ in range(n_req)]
+        done, wall = run_engine(model, cfg, prompts, new, max_len, pre_ms,
+                                dec_ms)
+        outs = [r.out for r in done]
+        waves = -(-n_req // FAMILY_SLOTS)
+        batch = {"tokens": torch.as_tensor(np.stack(prompts[:FAMILY_SLOTS]))
+                 .long().to(dev)}
+    else:
+        key = "patch_embeds" if cfg.family == "vlm" else "frames"
+        n_mem = cfg.n_patches if cfg.family == "vlm" else cfg.n_enc_frames
+        mem = torch.randn(n_req, n_mem, cfg.vision_dim, generator=tgen,
+                          device=dev)
+        toks = gen.integers(0, cfg.vocab, (n_req, plen))
+        batch = memory_batch(toks, {key: mem}, dev)
+        model.prefill = timed(model.prefill, pre_ms)
+        model.decode_step = timed(model.decode_step, dec_ms)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate(model, batch, new, max_len)
+        wall = time.perf_counter() - t0
+        del model.prefill, model.decode_step
+        outs = out.cpu().tolist()
+        waves = 1
+    counts = read_launches()
+    want = per_prefill * waves
+    for k, c in counts.items():
+        if c != (want if k == "flash_attention" else 0):
+            fail(f"{arch}: {k} launched {c} times, expected "
+                 f"{want if k == 'flash_attention' else 0}")
+    if FA.routes != {"mma": want, "simt": 0}:
+        fail(f"{arch}: flash launches by kernel {FA.routes}, expected every "
+             f"one flash_mma_kernel")
+    toks = [t for o in outs for t in o]
+    if len(outs) != n_req or len(toks) != n_req * new:
+        fail(f"{arch}: {len(outs)} requests, {len(toks)} tokens served")
+    if not all(0 <= t < cfg.vocab for t in toks):
+        fail(f"{arch}: a token outside the vocabulary")
+    extra = ""
+    if arch == "xlstm-125m":
+        # one queue alternating 1024- and 512-token prompts: equal-length
+        # waves, FIFO within each length
+        alt = [gen.integers(0, cfg.vocab, XLSTM_ALTERNATING[i % 2])
+               for i in range(n_req)]
+        alt_pre, alt_dec = [], []
+        done, alt_wall = run_engine(model, cfg, alt, new, max_len, alt_pre,
+                                    alt_dec)
+        order = [r.rid for r in done]
+        want_order = list(range(0, n_req, 2)) + list(range(1, n_req, 2))
+        if order != want_order:
+            fail(f"{arch}: alternating queue served in order {order}, "
+                 f"expected {want_order}")
+        extra = (f"; alternating 1024 / 512 queue: order {order}, "
+                 f"{alt_wall:.3f} s, prefill ms per wave "
+                 f"{', '.join(f'{t:.2f}' for t in alt_pre)}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ntok = len(toks)
+    print(f"{arch} [{smi}]: {how}, {n_req} requests x {plen} prompt + {new} "
+          f"new tokens, {waves} wave(s) of {min(n_req, FAMILY_SLOTS)}: "
+          f"{wall:.3f} s, {ntok / wall:.1f} tokens/s; prefill ms per wave "
+          f"{', '.join(f'{t:.2f}' for t in pre_ms)}; decode ms per step "
+          f"median {statistics.median(dec_ms):.3f} (min {min(dec_ms):.3f}, "
+          f"max {max(dec_ms):.3f}, {len(dec_ms)} steps); peak "
+          f"{peak - held:.2f} GiB allocated by the model's run ({peak:.2f} "
+          f"with the {held:.2f} GiB held before it); flash launches "
+          f"{counts['flash_attention']} "
+          f"({per_prefill} a prefill){extra}")
+    B = batch["tokens"].shape[0]
+    with torch.no_grad():
+        if cfg.n_experts:
+            shape, drop, lb, cap = moe_aux_of_first_call(
+                model, batch, model.init_cache(B, max_len))
+            print(f"{arch} moe_ffn at the prefill shape {shape}: drop_frac "
+                  f"{drop:.6f}, lb_loss {lb:.6f} (cap {cap} a expert)")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            logits, _ = model.prefill(batch, model.init_cache(B, max_len))
+            torch.cuda.synchronize()
+    if not bool(torch.isfinite(logits.float()).all()):
+        fail(f"{arch}: non-finite prefill logits")
+    rows, total = device_rows(prof)
+    if not total:
+        fail(f"{arch}: no CUDA activity in the prefill's profile")
+    n_mma, n_simt = (sum(e.count for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA and name in e.key)
+                     for name in ("flash_mma_kernel", "flash_fwd_kernel"))
+    if (n_mma, n_simt) != (per_prefill, 0):
+        fail(f"{arch}: the prefill's profile shows {n_mma} flash_mma_kernel "
+             f"and {n_simt} flash_fwd_kernel launches, expected "
+             f"{per_prefill} and 0")
+    flash = sum(t for k, t in rows if "flash_mma_kernel" in k)
+    print(f"{arch} prefill profile [{smi}]: device {total:.3f} ms, flash "
+          f"kernel {flash:.3f} ms ({flash / total:.1%}), {n_mma} "
+          f"flash_mma_kernel launches")
+    print_rows(rows)
+    del model, logits, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
+
+
+def phase_families(dev, smi):
+    """Phase 10: the five FAMILY_RUNS models at full width, one at a time.
+    Returns the flash launches of each model's run."""
+    t0 = time.perf_counter()
+    launches = {}
+    for arch in FAMILY_RUNS:
+        launches[arch] = phase_family(arch, dev, smi)
+    print(f"families: {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2573,15 +2916,21 @@ def main():
     flash = phase_flash(dev)
     done("flash")
     phase_lm_fixture(dev)
-    flash["launches"] = phase_lm(dev, smi)
+    phase_lm_families_fixture(dev)
+    by_path = {"qwen2-1.5b": phase_lm(dev, smi)}
     done("lm")
     phase_sharded(report)
     done("sharded")
+    by_path.update(phase_families(dev, smi))
+    done("families")
+    flash["launches"] = sum(by_path.values())
+    flash["launches_by_path"] = by_path
     report.append(flash)
     print("the BCPNN kernels' library_ms is null: no single PyTorch call "
           "computes a cell-math pass; flash_attention's is "
           "scaled_dot_product_attention (enable_gqa) at the qwen2-1.5b bf16 "
-          "shape")
+          "shape (by_shape: at each shape without softcap or window); its "
+          "launches are the LM serving runs' of phases 7 and 10")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

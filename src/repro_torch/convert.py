@@ -17,9 +17,15 @@ package's stacked leaves have it.
 LM parameters travel as the JAX package's parameter tree flattened to
 numpy arrays keyed by `jax.tree_util.keystr` paths (``['embed']``,
 ``['stack'][0][1]['attn']['wq']``, ...), where each pattern position of a
-stack segment holds its layers stacked along a leading repeats axis; the
-port keeps one module per layer (`repro_torch.models.transformer.Model`,
-state-dict names ``embed``, ``layers.<i>.attn.wq``, ...).
+stack segment holds its layers stacked along a leading repeats axis, and
+the audio encoder's layers (``['encoder']['stack']...``) are stacked along
+``n_enc_layers``; the port keeps one module per layer
+(`repro_torch.models.transformer.Model`, state-dict names ``embed``,
+``layers.<i>.attn.wq``, ``encoder.stack.<i>.attn.wq``, ...). Unstacked
+leaves (``['shared_attn']...``, ``['vision_proj']``, ``['pos_embed']``,
+``['encoder']['final_norm']``) map name for name. Each leaf keeps the
+dtype the port's model gives it (float32 routers, SSM gates and cross
+gates whatever ``param_dtype`` is).
 """
 from __future__ import annotations
 
@@ -123,14 +129,16 @@ def _layer_slots(cfg: ArchConfig):
 
 
 def _jax_path(name: str, slots):
-    """The JAX keystr path of a port state-dict name, and the repeat index
-    to take from its stacked leaf (None for an unstacked leaf)."""
+    """The JAX keystr path of a port state-dict name, and the index to take
+    from its stacked leaf (None for an unstacked leaf)."""
     parts = name.split(".")
-    if parts[0] != "layers":
-        return "".join(f"['{p}']" for p in parts), None
-    si, r, pi = slots[int(parts[1])]
-    return (f"['stack'][{si}][{pi}]" + "".join(f"['{p}']" for p in parts[2:]),
-            r)
+    keys = lambda ps: "".join(f"['{p}']" for p in ps)
+    if parts[0] == "layers":
+        si, r, pi = slots[int(parts[1])]
+        return f"['stack'][{si}][{pi}]" + keys(parts[2:]), r
+    if parts[:2] == ["encoder", "stack"]:
+        return "['encoder']['stack']" + keys(parts[3:]), int(parts[2])
+    return keys(parts), None
 
 
 def lm_params_from_numpy(flat, cfg: ArchConfig, device) -> dict:

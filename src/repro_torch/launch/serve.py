@@ -21,7 +21,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import rng
 from repro_torch.core.device import resolve_device
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import Model, layer_kinds
 from repro_torch.train.serve_step import make_decode_step, make_prefill, sample
 
 
@@ -37,16 +37,31 @@ class Request:
 class ServingEngine:
     """Step-synchronous batching over a fixed slot count. Runs on
     ``device`` (None means CUDA, and raises where there is none); the model
-    is moved there."""
+    is moved there.
+
+    The engine serves token-only batches, as the JAX package's does: the
+    VLM and audio families need their memory ("patch_embeds" / "frames")
+    and serve through `repro_torch.train.serve_step.generate`; the engine
+    refuses them (the JAX engine fails at their first prefill)."""
 
     def __init__(self, model: Model, batch_slots: int, max_len: int,
                  temperature: float = 0.0, device=None):
+        cfg = model.cfg
+        if cfg.family == "vlm" or cfg.enc_dec:
+            raise ValueError(
+                f"{cfg.arch_id}: the engine serves token-only batches; the "
+                f"{cfg.family} family serves through generate() with its "
+                "patch_embeds / frames")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.slots = batch_slots
         self.max_len = max_len
         self.prefill = make_prefill(self.model)
         self.decode = make_decode_step(self.model, temperature)
+        # a ragged wave (mixed prompt lengths) needs the pad mask to reach
+        # every mixer of the stack; only the cached-attention kinds honour it
+        self.ragged = set(layer_kinds(cfg)) <= {"attn", "attn_local",
+                                                "attn_moe"}
         self.queue: list[Request] = []
         self.completed: list[Request] = []
         self.steps = 0
@@ -54,14 +69,30 @@ class ServingEngine:
     def submit(self, req: Request):
         self.queue.append(req)
 
-    def run(self):
-        """Drain the queue in FIFO waves of up to ``slots`` requests; a wave
-        may mix prompt lengths (left-padded), since every ported block is
-        cached attention, which masks the pad."""
-        while self.queue:
+    def _next_wave(self):
+        if self.ragged:
             n = min(self.slots, len(self.queue))
             wave, self.queue = self.queue[:n], self.queue[n:]
-            self._run_wave(wave)
+            return wave
+        # recurrent stacks: a wave of the first request's prompt length,
+        # skipping over the others without reordering them
+        wave, rest = [], []
+        plen = len(self.queue[0].prompt)
+        for r in self.queue:
+            if len(wave) < self.slots and len(r.prompt) == plen:
+                wave.append(r)
+            else:
+                rest.append(r)
+        self.queue = rest
+        return wave
+
+    def run(self):
+        """Drain the queue in FIFO waves of up to ``slots`` requests.
+        Attention-only stacks serve mixed prompt lengths in one wave
+        (left-padded, the pad slots masked out of the KV cache); the others
+        group each wave by equal prompt length."""
+        while self.queue:
+            self._run_wave(self._next_wave())
         return self.completed
 
     def wave_inputs(self, wave):
@@ -69,6 +100,9 @@ class ServingEngine:
         lengths ((B,) or None when no row is padded), on the device."""
         plen = max(len(r.prompt) for r in wave)
         pad_np = np.array([plen - len(r.prompt) for r in wave], np.int64)
+        if pad_np.any() and not self.ragged:
+            raise ValueError("mixed prompt lengths need an attention-only "
+                             "stack (recurrent mixers cannot mask left-pad)")
         toks = np.zeros((len(wave), plen), np.int64)
         for i, r in enumerate(wave):
             toks[i, plen - len(r.prompt):] = r.prompt       # left-pad
@@ -89,7 +123,7 @@ class ServingEngine:
         for step in range(max_new - 1):
             key = rng.fold_in(key, step)
             tok, logits, caches = self.decode(tok, plen + step, caches, key,
-                                              pad)
+                                              None, None, pad)
             self.steps += 1
             for r, t in zip(wave, tok[:, 0].tolist()):
                 if not r.done and len(r.out) < r.max_new:

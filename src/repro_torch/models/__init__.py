@@ -1,5 +1,5 @@
-"""LM substrate of the port: the dense-family transformer (config schema,
-layers, model assembly)."""
+"""LM substrate of the port: config schema, layers, MoE and recurrent
+mixers, and model assembly for every family."""
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.transformer import Model, build_stack_spec
 

@@ -13,6 +13,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch import nn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,10 +98,49 @@ class ArchConfig:
 
     def param_count(self) -> int:
         """Exact parameter count: the sum of ``numel`` over a model built
-        on the ``meta`` device (no allocation). Raises for the families
-        whose blocks are not ported (ROADMAP queue A item 8)."""
+        on the ``meta`` device (no allocation)."""
         from repro_torch.models.transformer import Model  # lazy: no cycle
         return sum(p.numel() for p in Model(self, device="meta").parameters())
+
+    def _param_count_analytic(self) -> int:
+        D, H, Kv, hd = self.d_model, self.n_heads, self.n_kv, self.head_dim
+        attn = D * H * hd + 2 * D * Kv * hd + H * hd * D
+        if self.family in ("ssm", "hybrid") and self.ssm_kind:
+            inner = self.ssm_expand * D
+            mixer = D * inner * 2 + inner * D + inner * (2 * self.ssm_state)
+        else:
+            mixer = attn
+        if self.n_experts:
+            ff_moe = 3 * D * self.expert_d_ff * self.n_experts \
+                + D * self.n_experts \
+                + 3 * D * self.expert_d_ff * self.n_shared_experts
+            n_moe = self.n_layers // self.moe_period
+            n_dense = self.n_layers - n_moe
+            ff_total = n_moe * ff_moe + n_dense * 3 * D * self.d_ff
+            ff = ff_total / max(self.n_layers, 1)
+        else:
+            ff = 3 * D * self.d_ff
+        per_layer = mixer + ff + 2 * D
+        n_dec = self.n_layers
+        total = n_dec * per_layer \
+            + self.vocab * D * (1 if self.tie_embeddings else 2)
+        if self.enc_dec:
+            # encoder layers + decoder cross-attention
+            total += self.n_enc_layers * (attn + 3 * D * self.d_ff + 2 * D)
+            total += n_dec * (attn + D)
+        if self.cross_attn_period:
+            n_x = self.n_layers // self.cross_attn_period
+            total += n_x * (attn + 3 * D * self.d_ff + 2 * D)
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Parameters active per token (MoE: only top_k + shared experts)."""
+        if not self.n_experts:
+            return self.param_count()
+        inactive = (self.n_experts - self.top_k) * 3 * self.d_model \
+            * self.expert_d_ff
+        return int(self.param_count()
+                   - self.n_layers // self.moe_period * inactive)
 
 
 def dense_init(shape, dtype, generator: torch.Generator, device,
@@ -115,3 +155,22 @@ def dense_init(shape, dtype, generator: torch.Generator, device,
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device)
     return (x * scale).to(dtype)
+
+
+class ParamTree(nn.Module):
+    """Named parameters and sub-trees of one block part, read like the JAX
+    package's parameter dicts (``p["router"]``, ``p["shared"]["wi"]``), so
+    the layer functions take either this or a plain dict of tensors."""
+
+    def __init__(self, **items):
+        super().__init__()
+        for name, value in items.items():
+            setattr(self, name, value)
+
+    def __getitem__(self, name):
+        if name in self._parameters or name in self._modules:
+            return getattr(self, name)
+        raise KeyError(name)
+
+    def __contains__(self, name) -> bool:
+        return name in self._parameters or name in self._modules

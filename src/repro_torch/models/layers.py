@@ -11,11 +11,12 @@ out.
 
 Attention covers, through arguments: GQA with any kv-head count, QKV bias
 (qwen2), logit softcap (gemma2), sliding windows (gemma2's local layers),
-partial rotary (stablelm), and cached prefill / decode with ragged left
-padding. Prefill takes the
-flash kernel (`repro_torch.kernels.ops.flash_attention`) under
-``attn_impl="pallas_flash"`` when its shapes allow, else the chunked or
-the dense path, chosen as `repro.models.layers.attend` chooses.
+partial rotary (stablelm), cross-attention over a memory (the VLM and
+audio decoders), bidirectional attention (the audio encoder), and cached
+prefill / decode with ragged left padding. A causal self-attention
+prefill takes the flash kernel (`repro_torch.kernels.ops.flash_attention`)
+under ``attn_impl="pallas_flash"`` when its shapes allow, else the chunked
+or the dense path, chosen as `repro.models.layers.attend` chooses.
 """
 from __future__ import annotations
 
@@ -142,17 +143,22 @@ def _sdpa_flash(q, k, v, cfg: ArchConfig, scale, sliding_window, kv_len):
                                softcap=cfg.attn_softcap, kv_len=kv_len)
 
 
-def attend(params, x, cfg: ArchConfig, *, positions, sliding_window=None,
+def attend(params, x, cfg: ArchConfig, *, positions, kv=None,
+           kv_positions=None, causal=True, sliding_window=None,
            cache: Optional[KVCache] = None, pad=None):
-    """Causal self-attention; returns (out (B,Sq,D), cache). (The JAX
-    package's cross-attention and bidirectional arguments, ``kv``,
-    ``kv_positions`` and ``causal=False``, serve the VLM and audio blocks,
-    which are not ported: ROADMAP queue A item 8.)
+    """Attention; returns (out (B,Sq,D), cache).
 
-    With ``cache`` this is a cached prefill (Sq > 1) or decode step
-    (Sq == 1): the new keys and values go to slots [length, length + Sq)
-    of the cache, in place; past ``max_len`` it raises (the JAX package
-    clamps the start there).
+    Self-attention: ``kv`` None. Cross-attention: ``kv`` the memory
+    (B, Skv, D) that keys and values are projected from, usually with
+    ``causal=False``; RoPE applies to self-attention only, and the
+    memory's keys sit at ``kv_positions`` (default 0..Skv-1).
+    ``causal=False`` lets every query see every valid key (the encoder's
+    bidirectional attention and cross-attention).
+
+    With ``cache`` (self-attention only) this is a cached prefill (Sq > 1)
+    or decode step (Sq == 1): the new keys and values go to slots
+    [length, length + Sq) of the cache, in place; past ``max_len`` it
+    raises (the JAX package clamps the start there).
 
     ``pad`` ((B,) int64 per-row LEFT-pad lengths) serves ragged waves out
     of one cache: the caller passes positions already shifted by -pad; the
@@ -164,20 +170,24 @@ def attend(params, x, cfg: ArchConfig, *, positions, sliding_window=None,
     G = H // Kv
     cd = cfg.cdtype
 
+    src = x if kv is None else kv
     q = x @ params["wq"].to(cd)
-    k = x @ params["wk"].to(cd)
-    v = x @ params["wv"].to(cd)
+    k = src @ params["wk"].to(cd)
+    v = src @ params["wv"].to(cd)
     if cfg.qkv_bias:
         q = q + params["bq"].to(cd)
         k = k + params["bk"].to(cd)
         v = v + params["bv"].to(cd)
-    q = apply_rope(q.reshape(B, Sq, H, hd), positions, cfg.rope_theta,
-                   cfg.rotary_pct)
-    k = apply_rope(k.reshape(B, Sq, Kv, hd), positions, cfg.rope_theta,
-                   cfg.rotary_pct)
-    v = v.reshape(B, Sq, Kv, hd)
+    q = q.reshape(B, Sq, H, hd)
+    k = k.reshape(B, src.shape[1], Kv, hd)
+    v = v.reshape(B, src.shape[1], Kv, hd)
+    if kv is None:   # RoPE only for self-attention
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
+        k = apply_rope(k, positions if kv_positions is None else kv_positions,
+                       cfg.rope_theta, cfg.rotary_pct)
 
-    if cache is not None:
+    cached = cache is not None and kv is None
+    if cached:
         start, max_len = cache.length, cache.k.shape[1]
         if start + Sq > max_len:
             raise ValueError(f"KV cache overflow: {start} + {Sq} > {max_len}")
@@ -189,14 +199,15 @@ def attend(params, x, cfg: ArchConfig, *, positions, sliding_window=None,
     Skv = k.shape[1]
     scale = cfg.query_scale if cfg.query_scale else hd ** -0.5
     qg = q.reshape(B, Sq, Kv, G, hd)
-    use_flash = (cfg.attn_impl == "pallas_flash" and Sq > 1
-                 and Sq % 128 == 0 and Skv % 128 == 0
+    use_flash = (cfg.attn_impl == "pallas_flash" and Sq > 1 and kv is None
+                 and causal and Sq % 128 == 0 and Skv % 128 == 0
                  and pad is None)   # the flash path has no per-row pad mask
     if use_flash:
         out = _sdpa_flash(q, k, v, cfg, scale, sliding_window,
-                          cache.length if cache is not None else None)
+                          cache.length if cached else None)
     else:
-        mask = _mask(positions, Skv, x.device, cache, pad, sliding_window)
+        mask = _mask(positions, Skv, x.device, cache if cached else None,
+                     pad, sliding_window, kv_positions, causal)
         if cfg.attn_impl in ("chunked", "pallas_flash") and Sq > 1 \
                 and Skv > cfg.attn_chunk:
             out = _sdpa_chunked(qg, k, v, mask, cfg.attn_softcap, scale,
@@ -207,18 +218,26 @@ def attend(params, x, cfg: ArchConfig, *, positions, sliding_window=None,
     return out, cache
 
 
-def _mask(positions, Skv, device, cache, pad, sliding_window):
-    """(B|1, Sq, Skv) bool: the keys each query may attend to (causal; the
-    cache's valid prefix less each row's pad slots; the window)."""
+def _mask(positions, Skv, device, cache, pad, sliding_window,
+          kv_positions=None, causal=True):
+    """(B|1, Sq, Skv) bool: the keys each query may attend to (causal or
+    not; the cache's valid prefix less each row's pad slots; the window)."""
     q_pos = positions if positions.dim() == 2 else positions[None, :]
-    kv_pos = torch.arange(Skv, device=device)[None, :]
-    valid = torch.ones((1, Skv), dtype=torch.bool, device=device)
+    Sq = q_pos.shape[1]
     if cache is not None:
+        kv_pos = torch.arange(Skv, device=device)[None, :]
         valid = kv_pos < cache.length
         if pad is not None:
             valid = valid & (kv_pos >= pad[:, None])
             kv_pos = kv_pos - pad[:, None]
-    mask = (q_pos[:, :, None] >= kv_pos[:, None, :]) & valid[:, None, :]
+    else:
+        kv_pos = (torch.arange(Skv, device=device) if kv_positions is None
+                  else kv_positions)[None, :]
+        valid = torch.ones((1, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask = (q_pos[:, :, None] >= kv_pos[:, None, :]) & valid[:, None, :]
+    else:
+        mask = valid[:, None, :].expand(valid.shape[0], Sq, Skv)
     if sliding_window:
         mask = mask & (q_pos[:, :, None] - kv_pos[:, None, :] < sliding_window)
     return mask

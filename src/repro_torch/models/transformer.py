@@ -1,14 +1,28 @@
-"""Model assembly (the port of `repro.models.transformer`) for the dense
-family: the blocks ``attn`` (self-attention + gated MLP) and
-``attn_local`` (the same with a sliding window, gemma2's odd layers).
+"""Model assembly (the port of `repro.models.transformer`) for every
+family: dense, MoE, SSM / hybrid, VLM and audio.
 
-`build_stack_spec` is the JAX package's, for every kind. The model's
-layers are an `nn.ModuleList` in stack order (segment, then repeat, then
-pattern position), where the JAX package stacks each pattern position's
+Every architecture is a sequence of blocks of a few kinds:
+
+  attn         self-attention + gated MLP            (dense archs)
+  attn_local   sliding-window self-attention + MLP   (gemma2 odd layers)
+  attn_moe     self-attention + MoE FFN              (qwen3-moe, llama4)
+  mamba        Mamba2 mixer block                    (zamba2 backbone)
+  mlstm/slstm  xLSTM blocks                          (xlstm-125m)
+  shared_attn  attention + MLP with SHARED weights   (zamba2 global block)
+  cross        gated cross-attention + MLP           (llama3.2-vision)
+  enc_attn     bidirectional attention + MLP         (whisper encoder)
+  dec_cross    self-attn + cross-attn + MLP          (whisper decoder)
+
+`build_stack_spec` is the JAX package's. The model's decoder layers are
+an `nn.ModuleList` in stack order (segment, then repeat, then pattern
+position), where the JAX package stacks each pattern position's
 parameters along the repeats and scans them; serving needs neither scan
-nor remat. The other kinds (``attn_moe``, ``mamba``, ``mlstm``,
-``slstm``, ``shared_attn``, ``cross``, ``enc_attn``, ``dec_cross``) raise
-`NotImplementedError`: ROADMAP queue A item 8 ports them.
+nor remat. The ``shared_attn`` positions hold no parameters: the one
+shared block is `Model.shared_attn` (the JAX package's
+``params["shared_attn"]``), applied at each of them with its own cache.
+Each layer's cache is its recurrent state for the recurrent kinds and a
+`KVCache` for the attention kinds (``cross`` too, which never writes
+it, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -16,17 +30,15 @@ import torch
 from torch import nn
 
 from repro_torch.core.device import resolve_device
-from repro_torch.models.base import ArchConfig, dense_init
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
+from repro_torch.models.base import ArchConfig, ParamTree, dense_init
 from repro_torch.models.layers import (KVCache, attend, init_attn, init_mlp,
                                        mlp, rms_norm)
 
-PORTED_KINDS = ("attn", "attn_local")
-
-
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what}: not ported to PyTorch yet (ROADMAP queue A item 8: "
-        "MoE, SSM / hybrid, VLM and audio blocks)")
+ATTN_KINDS = ("attn", "attn_local", "attn_moe", "shared_attn", "enc_attn")
+KV_CACHE_KINDS = ("attn", "attn_local", "attn_moe", "shared_attn", "cross",
+                  "dec_cross")
 
 
 # --------------------------- stack specification ----------------------------
@@ -81,18 +93,52 @@ def layer_kinds(cfg: ArchConfig) -> list[str]:
 # ------------------------------ blocks ---------------------------------------
 
 class Block(nn.Module):
-    """One ``attn`` / ``attn_local`` block: norm1, attn, norm2, ffn."""
+    """One block's parameters, named as the JAX package's block dict:
+    norm1 and attn / mixer, then per kind gate_attn and gate_ffn (cross,
+    float32 scalars), norm_x and xattn (dec_cross), norm2 and ffn (an MLP,
+    or the MoE for attn_moe). ``placeholder=True`` holds nothing: a
+    ``shared_attn`` position of the stack."""
 
-    def __init__(self, cfg: ArchConfig, kind: str, generator, device):
+    def __init__(self, cfg: ArchConfig, kind: str, generator, device,
+                 placeholder: bool = False):
         super().__init__()
-        if kind not in PORTED_KINDS:
-            raise _unported(f"the {kind!r} block")
         self.kind = kind
+        if placeholder:
+            return
         D = cfg.d_model
-        self.norm1 = nn.Parameter(torch.zeros(D, dtype=cfg.pdtype, device=device))
-        self.attn = init_attn(cfg, generator, device)
-        self.norm2 = nn.Parameter(torch.zeros(D, dtype=cfg.pdtype, device=device))
-        self.ffn = init_mlp(cfg, generator, device)
+        norm = lambda: nn.Parameter(torch.zeros(D, dtype=cfg.pdtype,
+                                                device=device))
+        self.norm1 = norm()
+        if kind in ATTN_KINDS:
+            self.attn = init_attn(cfg, generator, device)
+            self.norm2 = norm()
+            self.ffn = (moe_mod.init_moe(cfg, generator, device)
+                        if kind == "attn_moe" else
+                        init_mlp(cfg, generator, device))
+        elif kind == "cross":
+            self.attn = init_attn(cfg, generator, device)
+            self.gate_attn = nn.Parameter(torch.zeros((), dtype=torch.float32,
+                                                      device=device))
+            self.gate_ffn = nn.Parameter(torch.zeros((), dtype=torch.float32,
+                                                     device=device))
+            self.norm2 = norm()
+            self.ffn = init_mlp(cfg, generator, device)
+        elif kind == "dec_cross":
+            self.attn = init_attn(cfg, generator, device)
+            self.norm_x = norm()
+            self.xattn = init_attn(cfg, generator, device)
+            self.norm2 = norm()
+            self.ffn = init_mlp(cfg, generator, device)
+        elif kind == "mamba":
+            self.mixer = ssm.init_mamba2(cfg, generator, device)
+        elif kind == "mlstm":
+            self.mixer = ssm.init_mlstm(cfg, generator, device)
+        elif kind == "slstm":
+            self.mixer = ssm.init_slstm(cfg, generator, device)
+            self.norm2 = norm()
+            self.ffn = init_mlp(cfg, generator, device, d_ff=max(4 * D // 3, 8))
+        else:
+            raise ValueError(kind)
 
 
 def init_block(cfg: ArchConfig, kind: str, generator, device) -> Block:
@@ -100,44 +146,126 @@ def init_block(cfg: ArchConfig, kind: str, generator, device) -> Block:
 
 
 def init_cache_for_kind(cfg: ArchConfig, kind: str, batch: int, max_len: int,
-                        device) -> KVCache:
-    if kind not in PORTED_KINDS:
-        raise _unported(f"the {kind!r} cache")
-    shape = (batch, max_len, cfg.n_kv, cfg.head_dim)
-    return KVCache(torch.zeros(shape, dtype=cfg.cdtype, device=device),
-                   torch.zeros(shape, dtype=cfg.cdtype, device=device), 0)
+                        device):
+    """An empty cache for one block: a `KVCache` (B, max_len, Kv, hd) in the
+    compute dtype for the attention kinds; the recurrent state for mamba
+    ((B, H, 64, N) float32, (B, 3, conv width) compute dtype), mlstm and
+    slstm (float32, m at -1e30); None for enc_attn."""
+    cd = cfg.cdtype
+    zeros = lambda shape, dtype=torch.float32: torch.zeros(
+        shape, dtype=dtype, device=device)
+    if kind in KV_CACHE_KINDS:
+        shape = (batch, max_len, cfg.n_kv, cfg.head_dim)
+        return KVCache(zeros(shape, cd), zeros(shape, cd), 0)
+    if kind == "mamba":
+        inner, N, P, H = ssm.mamba_dims(cfg)
+        return (zeros((batch, H, P, N)), zeros((batch, 3, inner + 2 * N), cd))
+    if kind == "mlstm":
+        hd = ssm.mlstm_head_dim(cfg)
+        return (zeros((batch, cfg.n_heads, hd, hd)),
+                zeros((batch, cfg.n_heads, hd)),
+                torch.full((batch, cfg.n_heads), -1e30, dtype=torch.float32,
+                           device=device))
+    if kind == "slstm":
+        return ssm.slstm_init_state(batch, cfg.d_model, device)
+    if kind == "enc_attn":
+        return None
+    raise ValueError(kind)
 
 
 def apply_block(p: Block, x, cfg: ArchConfig, kind: str, *, positions,
-                cache=None, pad=None):
-    """Apply one block; returns (x, new_cache). (The JAX package also
-    returns the MoE auxiliary loss, which these blocks do not have.)"""
-    if kind not in PORTED_KINDS:
-        raise _unported(f"the {kind!r} block")
-    sw = cfg.sliding_window if kind == "attn_local" else None
-    h = rms_norm(x, p.norm1, cfg.rms_eps)
-    a, cache = attend(p.attn, h, cfg, positions=positions, sliding_window=sw,
-                      cache=cache, pad=pad)
-    x = x + a
-    h = rms_norm(x, p.norm2, cfg.rms_eps)
-    return x + mlp(p.ffn, h, cfg), cache
+                memory=None, memory_positions=None, cache=None,
+                shared_params=None, decode: bool = False, pad=None):
+    """Apply one block; returns (x, new_cache, aux), aux the MoE
+    load-balance loss (0.0 for the other kinds). ``pad`` reaches only the
+    cached self-attention: recurrent mixers cannot mask a left pad, so the
+    serving engine serves them equal-length waves."""
+    aux = 0.0
+    if kind == "shared_attn":
+        p = shared_params
+    if kind in ATTN_KINDS:
+        sw = cfg.sliding_window if kind == "attn_local" else None
+        h = rms_norm(x, p.norm1, cfg.rms_eps)
+        a, cache = attend(p.attn, h, cfg, positions=positions,
+                          causal=kind != "enc_attn", sliding_window=sw,
+                          cache=cache, pad=pad)
+        x = x + a
+        h = rms_norm(x, p.norm2, cfg.rms_eps)
+        if kind == "attn_moe":
+            f, moe_aux = moe_mod.moe_ffn(p.ffn, h, cfg)
+            aux = moe_aux["lb_loss"]
+        else:
+            f = mlp(p.ffn, h, cfg)
+        return x + f, cache, aux
+    if kind == "cross":
+        h = rms_norm(x, p.norm1, cfg.rms_eps)
+        a, _ = attend(p.attn, h, cfg, positions=positions, kv=memory,
+                      kv_positions=memory_positions, causal=False)
+        x = x + torch.tanh(p.gate_attn).to(x.dtype) * a
+        h = rms_norm(x, p.norm2, cfg.rms_eps)
+        x = x + torch.tanh(p.gate_ffn).to(x.dtype) * mlp(p.ffn, h, cfg)
+        return x, cache, aux
+    if kind == "dec_cross":
+        h = rms_norm(x, p.norm1, cfg.rms_eps)
+        a, cache = attend(p.attn, h, cfg, positions=positions, causal=True,
+                          cache=cache, pad=pad)
+        x = x + a
+        h = rms_norm(x, p.norm_x, cfg.rms_eps)
+        a, _ = attend(p.xattn, h, cfg, positions=positions, kv=memory,
+                      kv_positions=memory_positions, causal=False)
+        x = x + a
+        h = rms_norm(x, p.norm2, cfg.rms_eps)
+        return x + mlp(p.ffn, h, cfg), cache, aux
+    if kind == "mamba":
+        h = rms_norm(x, p.norm1, cfg.rms_eps)
+        if decode:
+            state, conv_buf = cache
+            y, state, conv_buf = ssm.mamba2_step(p.mixer, h, state, cfg,
+                                                 conv_buf)
+            return x + y, (state, conv_buf), aux
+        if cache is not None:   # prefill: produce the recurrent state
+            y, cache = ssm.mamba2_seq(p.mixer, h, cfg, return_state=True)
+            return x + y, cache, aux
+        return x + ssm.mamba2_seq(p.mixer, h, cfg), cache, aux
+    if kind == "mlstm":
+        h = rms_norm(x, p.norm1, cfg.rms_eps)
+        if decode:
+            y, cache = ssm.mlstm_step(p.mixer, h, cache, cfg)
+            return x + y, cache, aux
+        if cache is not None:
+            y, cache = ssm.mlstm_seq(p.mixer, h, cfg, return_state=True)
+            return x + y, cache, aux
+        return x + ssm.mlstm_seq(p.mixer, h, cfg), cache, aux
+    if kind == "slstm":
+        h = rms_norm(x, p.norm1, cfg.rms_eps)
+        if decode:
+            y, cache = ssm.slstm_step(p.mixer, h, cache, cfg)
+        elif cache is not None:
+            y, cache = ssm.slstm_seq(p.mixer, h, cfg, return_state=True)
+        else:
+            y = ssm.slstm_seq(p.mixer, h, cfg)
+        x = x + y
+        h = rms_norm(x, p.norm2, cfg.rms_eps)
+        return x + mlp(p.ffn, h, cfg), cache, aux
+    raise ValueError(kind)
 
 
 # ------------------------------- the model ----------------------------------
 
+POS_EMBED_ROWS = 32_768       # the JAX package's learned positions (enc-dec)
+
+
 class Model(nn.Module):
-    """A dense-family decoder. Parameters are drawn from a `torch.Generator`
-    seeded with ``seed`` on ``device`` (None means CUDA, and raises where
-    there is none; ``"meta"`` allocates nothing, for counting or for
-    loading weights with ``load_state_dict(..., assign=True)``). The draws
-    are not JAX's: tests carry JAX parameters across with
-    `repro_torch.convert.lm_params_from_numpy`."""
+    """A decoder of any family, with the VLM projection or the audio
+    encoder where the config has one. Parameters are drawn from a
+    `torch.Generator` seeded with ``seed`` on ``device`` (None means CUDA,
+    and raises where there is none; ``"meta"`` allocates nothing, for
+    counting or for loading weights with ``load_state_dict(...,
+    assign=True)``). The draws are not JAX's: tests carry JAX parameters
+    across with `repro_torch.convert.lm_params_from_numpy`."""
 
     def __init__(self, cfg: ArchConfig, device=None, seed: int = 0):
         super().__init__()
-        unported = sorted(set(layer_kinds(cfg)) - set(PORTED_KINDS))
-        if unported:
-            raise _unported(f"the {cfg.family} family's {unported} blocks")
         device = resolve_device(device)
         gen = None
         if device.type != "meta":
@@ -145,15 +273,30 @@ class Model(nn.Module):
             gen.manual_seed(seed)
         self.cfg = cfg
         D = cfg.d_model
-        self.embed = nn.Parameter(dense_init((cfg.vocab, D), cfg.pdtype, gen,
-                                             device, scale=0.02))
+        init = lambda shape, **kw: nn.Parameter(
+            dense_init(shape, cfg.pdtype, gen, device, **kw))
+        self.embed = init((cfg.vocab, D), scale=0.02)
         self.final_norm = nn.Parameter(torch.zeros(D, dtype=cfg.pdtype,
                                                    device=device))
         if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(dense_init((D, cfg.vocab), cfg.pdtype,
-                                                   gen, device))
-        self.layers = nn.ModuleList(init_block(cfg, kind, gen, device)
-                                    for kind in layer_kinds(cfg))
+            self.lm_head = init((D, cfg.vocab))
+        kinds = layer_kinds(cfg)
+        self.layers = nn.ModuleList(
+            Block(cfg, kind, gen, device, placeholder=kind == "shared_attn")
+            for kind in kinds)
+        if "shared_attn" in kinds:
+            self.shared_attn = init_block(cfg, "shared_attn", gen, device)
+        if cfg.family == "vlm":
+            self.vision_proj = init((cfg.vision_dim, D))
+        if cfg.enc_dec:
+            self.encoder = ParamTree(
+                stack=nn.ModuleList(init_block(cfg, "enc_attn", gen, device)
+                                    for _ in range(cfg.n_enc_layers)),
+                final_norm=nn.Parameter(torch.zeros(D, dtype=cfg.pdtype,
+                                                    device=device)),
+                frame_proj=init((cfg.vision_dim, D)))
+            # sized for 32k decode positions; the real whisper caps at 448
+            self.pos_embed = init((POS_EMBED_ROWS, D), scale=0.02)
 
     @property
     def device(self) -> torch.device:
@@ -178,58 +321,101 @@ class Model(nn.Module):
             logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
         return logits
 
-    def _run_stack(self, x, *, positions, caches=None, pad=None):
-        new_caches = []
+    def _run_stack(self, x, *, positions, memory=None, memory_positions=None,
+                   caches=None, decode=False, pad=None):
+        """Every decoder layer in order; returns (x, caches or None, aux)."""
+        shared = getattr(self, "shared_attn", None)
+        new_caches, aux = [], 0.0
         for i, layer in enumerate(self.layers):
-            x, c = apply_block(layer, x, self.cfg, layer.kind,
-                               positions=positions,
-                               cache=None if caches is None else caches[i],
-                               pad=pad)
+            x, c, a = apply_block(
+                layer, x, self.cfg, layer.kind, positions=positions,
+                memory=memory, memory_positions=memory_positions,
+                cache=None if caches is None else caches[i],
+                shared_params=shared, decode=decode, pad=pad)
             new_caches.append(c)
-        return x, (new_caches if caches is not None else None)
+            aux = aux + a
+        if not torch.is_tensor(aux):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, (new_caches if caches is not None else None), aux
 
     def _positions(self, B, S, device):
         return torch.arange(S, device=device)[None, :].expand(B, S)
 
+    def _encode_memory(self, batch):
+        """(memory (B, M, D), memory positions (M,)) of the VLM projection
+        (``batch["patch_embeds"]``, the stub vision tower's output) or the
+        audio encoder (``batch["frames"]``); (None, None) otherwise."""
+        cfg = self.cfg
+        cd = cfg.cdtype
+        if cfg.family == "vlm":
+            mem = batch["patch_embeds"].to(cd) @ self.vision_proj.to(cd)
+            return mem, torch.arange(mem.shape[1], device=mem.device)
+        if cfg.enc_dec:
+            enc = self.encoder
+            mem = batch["frames"].to(cd) @ enc.frame_proj.to(cd)
+            pos = torch.arange(mem.shape[1], device=mem.device)
+            for layer in enc.stack:
+                mem, _, _ = apply_block(layer, mem, cfg, "enc_attn",
+                                        positions=pos)
+            return rms_norm(mem, enc.final_norm, cfg.rms_eps), pos
+        return None, None
+
+    def _with_positions(self, x, start: int):
+        """Enc-dec: add the learned positions start .. start + S - 1."""
+        if self.cfg.enc_dec:
+            S = x.shape[1]
+            x = x + self.pos_embed[start:start + S].to(x.dtype)[None]
+        return x
+
     # ---------------- public entry points ----------------
     def forward(self, batch):
-        """Teacher-forced forward: batch = {"tokens": (B, S)}; returns the
-        logits (B, S, V) in the compute dtype."""
+        """Teacher-forced forward: batch = {"tokens": (B, S)} and, for the
+        VLM / audio families, "patch_embeds" / "frames". Returns (logits
+        (B, S, V) in the compute dtype, aux: the summed MoE load-balance
+        loss, a float32 scalar)."""
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = self._embed(tokens)
-        x, _ = self._run_stack(x, positions=self._positions(B, S, x.device))
-        return self._logits(x)
+        x = self._with_positions(self._embed(tokens), 0)
+        memory, mem_pos = self._encode_memory(batch)
+        x, _, aux = self._run_stack(x, positions=self._positions(B, S, x.device),
+                                    memory=memory, memory_positions=mem_pos)
+        return self._logits(x), aux
 
-    def init_cache(self, batch_size: int, max_len: int) -> list[KVCache]:
-        """One empty KV cache per layer, in stack order."""
+    def init_cache(self, batch_size: int, max_len: int) -> list:
+        """One empty cache per decoder layer, in stack order."""
         return [init_cache_for_kind(self.cfg, layer.kind, batch_size, max_len,
                                     self.device) for layer in self.layers]
 
     def prefill(self, batch, caches, pad=None):
-        """Fill the caches with the prompt; returns (logits of the last
+        """Fill the caches with the prompt (and encode the memory of the
+        VLM / audio families from ``batch``); returns (logits of the last
         position (B, 1, V), caches). ``pad`` ((B,) left-pad lengths) serves
         a ragged wave: row b's logical positions run -pad[b] .. S-1-pad[b]
         and its pad slots are masked downstream."""
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = self._embed(tokens)
+        x = self._with_positions(self._embed(tokens), 0)
+        memory, mem_pos = self._encode_memory(batch)
         positions = self._positions(B, S, x.device)
         if pad is not None:
             positions = positions - pad[:, None]
-        x, caches = self._run_stack(x, positions=positions, caches=caches,
-                                    pad=pad)
+        x, caches, _ = self._run_stack(x, positions=positions, memory=memory,
+                                       memory_positions=mem_pos,
+                                       caches=caches, pad=pad)
         return self._logits(x[:, -1:, :]), caches
 
-    def decode_step(self, token, pos: int, caches, pad=None):
+    def decode_step(self, token, pos: int, caches, memory=None, mem_pos=None,
+                    pad=None):
         """token (B, 1); ``pos`` the current buffer position (cache slot),
-        a Python int. With ``pad``, row b's logical position is
+        a Python int; ``memory`` / ``mem_pos`` from `_encode_memory` for
+        the VLM / audio families. With ``pad``, row b's logical position is
         pos - pad[b]. Returns (logits (B, 1, V), caches)."""
         B = token.shape[0]
-        x = self._embed(token)
+        x = self._with_positions(self._embed(token), pos)
         positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
         if pad is not None:
             positions = positions - pad[:, None]
-        x, caches = self._run_stack(x, positions=positions, caches=caches,
-                                    pad=pad)
+        x, caches, _ = self._run_stack(x, positions=positions, memory=memory,
+                                       memory_positions=mem_pos,
+                                       caches=caches, decode=True, pad=pad)
         return self._logits(x), caches

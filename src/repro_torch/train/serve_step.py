@@ -31,8 +31,10 @@ def make_prefill(model: Model):
 
 
 def make_decode_step(model: Model, temperature: float = 0.0):
-    def decode_step(token, pos: int, caches, key, pad=None):
-        logits, caches = model.decode_step(token, pos, caches, pad=pad)
+    def decode_step(token, pos: int, caches, key, memory=None, mem_pos=None,
+                    pad=None):
+        logits, caches = model.decode_step(token, pos, caches, memory,
+                                           mem_pos, pad=pad)
         return sample(logits, key, temperature), logits, caches
     return decode_step
 
@@ -40,16 +42,20 @@ def make_decode_step(model: Model, temperature: float = 0.0):
 @torch.no_grad()
 def generate(model: Model, batch, max_new: int, max_len: int,
              temperature: float = 0.0, key=None):
-    """Host-loop generation driver: (B, max_new) int32 tokens."""
+    """Host-loop generation driver: (B, max_new) int32 tokens. ``batch``
+    holds "tokens" (B, S) and, for the VLM / audio families,
+    "patch_embeds" / "frames": their memory is encoded once for the decode
+    steps (the prefill encodes its own, as in the JAX package)."""
     key = key if key is not None else rng.PRNGKey(0, model.device)
     B, S = batch["tokens"].shape
     caches = model.init_cache(B, max_len)
+    memory, mem_pos = model._encode_memory(batch)
     step = make_decode_step(model, temperature)
     logits, caches = model.prefill(batch, caches)
     tok = sample(logits, key, temperature)
     out = [tok]
     for i in range(max_new - 1):
         key = rng.fold_in(key, i)
-        tok, logits, caches = step(tok, S + i, caches, key)
+        tok, logits, caches = step(tok, S + i, caches, key, memory, mem_pos)
         out.append(tok)
     return torch.cat(out, dim=1)

@@ -16,7 +16,9 @@ from repro_torch.core.layout import BlockedLayout, FlatLayout
 from repro_torch.core.params import human_scale, rodent_scale
 from repro_torch.core.params import test_scale as tiny_scale
 from repro_torch.launch.serve import ServingEngine
+from repro_torch.models.layers import KVCache
 from repro_torch.models.transformer import Model, init_cache_for_kind
+from torch_jax_ref import run_jax
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -64,21 +66,67 @@ def test_lm_entry_points_default_to_cuda(make):
 DENSE = ("internlm2-1.8b", "stablelm-3b", "qwen2-1.5b", "gemma2-9b")
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in DENSE])
-def test_unported_lm_families_raise(arch):
-    """MoE, SSM / hybrid, VLM and audio stacks are not ported: building
-    the model raises, naming the ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 8"):
-        Model(get_smoke_config(arch), device="cpu")
+FAMILY_ARCHS = [a for a in ARCH_IDS if a not in DENSE]
+# block kind -> the smoke config whose stack has it
+KIND_ARCH = {"attn_moe": "qwen3-moe-235b-a22b", "mamba": "zamba2-7b",
+             "mlstm": "xlstm-125m", "slstm": "xlstm-125m",
+             "shared_attn": "zamba2-7b", "cross": "llama-3.2-vision-11b",
+             "enc_attn": "whisper-large-v3", "dec_cross": "whisper-large-v3"}
+CACHE_BATCH, CACHE_LEN = 3, 40
+
+COUNTS_BODY = """
+from repro.configs import get_config, get_smoke_config
+from repro.models.transformer import count_params, init_cache_for_kind
+
+for arch in ARCHS:
+    cfg = get_config(arch)
+    OUT[f"{arch}/count"] = np.int64(count_params(cfg))
+    OUT[f"{arch}/analytic"] = np.int64(cfg._param_count_analytic())
+    OUT[f"{arch}/active"] = np.int64(cfg.active_param_count())
+for kind, arch in KIND_ARCH.items():
+    cache = init_cache_for_kind(get_smoke_config(arch), kind, BATCH, LEN)
+    OUT[f"{kind}/leaves"] = np.array(repr(
+        [(tuple(l.shape), str(l.dtype), float(l.min()), float(l.max()))
+         for l in jax.tree.leaves(cache)]))
+"""
 
 
-@pytest.mark.parametrize("kind", ["attn_moe", "mamba", "mlstm", "slstm",
-                                  "shared_attn", "cross", "enc_attn",
-                                  "dec_cross"])
-def test_unported_lm_kinds_raise(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cache_for_kind(get_smoke_config("qwen3-moe-235b-a22b"), kind,
-                            1, 8, "cpu")
+@pytest.fixture(scope="module")
+def jax_counts():
+    head = (f"ARCHS = {FAMILY_ARCHS!r}\nKIND_ARCH = {KIND_ARCH!r}\n"
+            f"BATCH, LEN = {CACHE_BATCH}, {CACHE_LEN}\n")
+    return run_jax(head + COUNTS_BODY)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_lm_family_param_count_matches_jax(jax_counts, arch):
+    """`ArchConfig.param_count` (a model built on the meta device) at full
+    width equals the JAX package's `count_params` (an abstract init), and
+    the analytic and active counts equal the JAX package's."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    assert cfg.param_count() == int(jax_counts[f"{arch}/count"])
+    assert cfg._param_count_analytic() == int(jax_counts[f"{arch}/analytic"])
+    assert cfg.active_param_count() == int(jax_counts[f"{arch}/active"])
+
+
+@pytest.mark.parametrize("kind", list(KIND_ARCH))
+def test_cache_for_kind_matches_jax(jax_counts, kind):
+    """Shapes, dtypes and fill values of each kind's empty cache, leaf for
+    leaf; a `KVCache`'s length is a Python int 0 where JAX holds a 0-d
+    int32."""
+    cache = init_cache_for_kind(get_smoke_config(KIND_ARCH[kind]), kind,
+                                CACHE_BATCH, CACHE_LEN, "cpu")
+    if cache is None:
+        leaves = []
+    elif isinstance(cache, KVCache):
+        assert cache.length == 0 and isinstance(cache.length, int)
+        leaves = [cache.k, cache.v, torch.zeros((), dtype=torch.int32)]
+    else:
+        leaves = list(cache)
+    got = [(tuple(t.shape), str(t.dtype).replace("torch.", ""),
+            float(t.min()), float(t.max())) for t in leaves]
+    assert repr(got) == str(jax_counts[f"{kind}/leaves"])
 
 
 @pytest.mark.parametrize("arch", DENSE)

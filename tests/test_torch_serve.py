@@ -20,8 +20,24 @@
   drains without loss or duplicates, and each slot stops at its own
   ``max_new``; `generate` agrees with the engine, and `main` serves the
   smoke config.
-* On a CUDA device (skipped without one): the fixture served on the card
-  through the flash kernel, with its launch count.
+* The other six families against the JAX package, greedy at float32:
+  the committed fixture tests/fixtures/lm_families_smoke.npz (written by
+  tests/fixtures/capture_lm_families.py, replayed by chip_smoke.py phase
+  7b on the card): prefill logits and 8 greedy tokens of two 128-token
+  prompts, through the engine for qwen3-moe, llama4, zamba2 and xlstm
+  and through `generate` with ``patch_embeds`` / ``frames`` for
+  llama-3.2-vision and whisper (its cross layers' tanh gates, 0 at init,
+  opened to 0.5 here and in the live run below, so the gated
+  cross-attention shows). Logits atol `FAMILY_FIXTURE_ATOL`. And a
+  live JAX run: the recurrent stacks (zamba2, xlstm) serve equal-length
+  waves (prompts of 128 and 64 tokens interleaved, two slots: the same
+  completion order and tokens as the JAX engine's grouping), the MoE
+  stacks serve a ragged wave, `generate` with memory for the VLM and
+  audio families, and the engine refuses the VLM and audio families,
+  whose first prefill fails in the JAX engine.
+* A wave of mixed prompt lengths raises ValueError on a recurrent stack.
+* On a CUDA device (skipped without one): the fixtures served on the card
+  through the flash kernel, with their launch counts.
 """
 import dataclasses
 import pathlib
@@ -36,7 +52,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import rng
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.launch.serve import Request, ServingEngine
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import Model, layer_kinds
 from repro_torch.train.serve_step import generate, sample
 
 FIXTURE = pathlib.Path(__file__).resolve().parent / "fixtures" / "lm_serve_smoke.npz"
@@ -290,3 +306,201 @@ def test_sample_on_cuda_equals_the_cpu(dtype):
     else:
         np.testing.assert_allclose(g_dev.numpy(), g_cpu.numpy(), rtol=1e-5,
                                    atol=1e-6)
+
+
+# ------------------------- the other six families ---------------------------
+
+FAMILY_FIXTURE = FIXTURE.parent / "lm_families_smoke.npz"
+FAMILY_ARCHS = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
+                "zamba2-7b", "xlstm-125m", "llama-3.2-vision-11b",
+                "whisper-large-v3")
+MEMORY_ARCHS = ("llama-3.2-vision-11b", "whisper-large-v3")
+RECURRENT_ARCHS = ("zamba2-7b", "xlstm-125m")
+MOE_ARCHS = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b")
+# float32 prefill logits (|logits| < 4.2) against the fixture's, measured
+# on the CPU: up to 4.1e-6 for the attention and MoE stacks, zamba2
+# 1.6e-5, xlstm 6.4e-5 (its logits lie 2.3e-4 from float64 in torch and
+# XLA alike: tests/test_torch_lm.py); about 5x margin
+FAMILY_FIXTURE_ATOL = {"zamba2-7b": 1e-4, "xlstm-125m": 1e-3}
+FAMILY_FIXTURE_DEFAULT_ATOL = 2e-5
+RECURRENT_LENS = (128, 64, 128, 64, 128)
+
+FAMILY_LIVE_BODY = """
+import dataclasses
+from repro.configs import get_smoke_config
+from repro.launch.serve import Request, ServingEngine
+from repro.models.transformer import Model
+from repro.train.serve_step import generate
+
+for arch in ARCHS:
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32",
+                              attn_impl="pallas_flash")
+    model = Model(cfg)
+    params = model.init(jax.random.PRNGKey(0))
+    # the cross layers' tanh gates start at 0, which hides cross-attention
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, a: a + 0.5 if "gate_" in jax.tree_util.keystr(p) else a,
+        params)
+    for path, leaf in jax.tree_util.tree_leaves_with_path(params):
+        OUT[f"{arch}/param{jax.tree_util.keystr(path)}"] = leaf
+    if arch in MEMORY_ARCHS:
+        key = "patch_embeds" if cfg.family == "vlm" else "frames"
+        batch = {"tokens": jnp.asarray(IN["prompt0"][None, :128].repeat(2, 0)
+                                       + jnp.arange(2)[:, None]) % 512,
+                 key: jnp.asarray(IN[f"{arch}/{key}"])}
+        OUT[f"{arch}/generate"] = generate(model, params, batch, 6, 256)
+        eng = ServingEngine(model, params, 2, 256)
+        eng.submit(Request(0, IN["prompt0"][:16], 3))
+        try:
+            eng.run()
+            OUT[f"{arch}/engine_failed"] = np.int32(0)
+        except Exception:
+            OUT[f"{arch}/engine_failed"] = np.int32(1)
+        continue
+    lens = RECURRENT_LENS if arch in RECURRENT_ARCHS else (20, 9, 14)
+    eng = ServingEngine(model, params, 2, 256)
+    for rid, n in enumerate(lens):
+        eng.submit(Request(rid, IN[f"prompt{rid % 3}"][:n], 6))
+    done = eng.run()
+    OUT[f"{arch}/order"] = np.array([r.rid for r in done], np.int32)
+    OUT[f"{arch}/tokens"] = np.array(
+        [r.out for r in sorted(done, key=lambda r: r.rid)], np.int32)
+"""
+
+
+def _memory_inputs():
+    rs = np.random.default_rng(14)
+    out = {}
+    for arch in MEMORY_ARCHS:
+        cfg = get_smoke_config(arch)
+        key = "patch_embeds" if cfg.family == "vlm" else "frames"
+        n = cfg.n_patches if cfg.family == "vlm" else cfg.n_enc_frames
+        out[f"{arch}/{key}"] = rs.normal(size=(2, n, cfg.vision_dim)).astype(
+            np.float32)
+    return out
+
+
+@pytest.fixture(scope="module")
+def live_families():
+    head = (f"ARCHS = {FAMILY_ARCHS!r}\nMEMORY_ARCHS = {MEMORY_ARCHS!r}\n"
+            f"RECURRENT_ARCHS = {RECURRENT_ARCHS!r}\n"
+            f"RECURRENT_LENS = {RECURRENT_LENS!r}\n")
+    return run_jax(head + FAMILY_LIVE_BODY, {**_prompts(), **_memory_inputs()},
+                   timeout=600)
+
+
+@pytest.fixture(scope="module")
+def family_fixture():
+    return dict(np.load(FAMILY_FIXTURE))
+
+
+def _memory_batch(d, arch, tokens, device):
+    batch = {"tokens": torch.as_tensor(np.asarray(tokens)).long().to(device)}
+    for k in ("patch_embeds", "frames"):
+        if f"{arch}/{k}" in d:
+            batch[k] = torch.from_numpy(d[f"{arch}/{k}"]).to(device)
+    return batch
+
+
+def replay_family(d, arch, device):
+    """Serve the families fixture's two prompts for ``arch`` on
+    ``device``: (prefill logits (2, 1, V) float32 numpy, greedy tokens
+    (2, 8))."""
+    model = _model(_flat(d, arch, bits=True), arch, device)
+    prompts = d["prompts"]
+    batch = _memory_batch(d, arch, prompts, device)
+    with torch.no_grad():
+        logits, _ = model.prefill(batch, model.init_cache(len(prompts),
+                                                          MAX_LEN))
+    if arch in MEMORY_ARCHS:
+        toks = generate(model, batch, 8, MAX_LEN).cpu().numpy()
+    else:
+        toks = _serve(model, prompts, 8, len(prompts), device)
+    return logits.float().cpu().numpy(), toks
+
+
+def _check_family_replay(d, arch, device):
+    logits, toks = replay_family(d, arch, device)
+    atol = FAMILY_FIXTURE_ATOL.get(arch, FAMILY_FIXTURE_DEFAULT_ATOL)
+    np.testing.assert_allclose(logits, d[f"{arch}/logits"], rtol=0, atol=atol)
+    np.testing.assert_array_equal(toks, d[f"{arch}/tokens"])
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_families_fixture_replays_on_cpu(family_fixture, arch):
+    _check_family_replay(family_fixture, arch, "cpu")
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_engine_groups_equal_lengths_as_jax(live_families, arch):
+    model = _model(_flat(live_families, arch), arch, "cpu")
+    eng = ServingEngine(model, 2, MAX_LEN, device="cpu")
+    assert not eng.ragged
+    for rid, n in enumerate(RECURRENT_LENS):
+        eng.submit(Request(rid, _prompts()[f"prompt{rid % 3}"][:n], 6))
+    done = eng.run()
+    order = [r.rid for r in done]
+    np.testing.assert_array_equal(order, live_families[f"{arch}/order"])
+    assert order == [0, 2, 1, 3, 4]      # grouped by length, FIFO within
+    got = np.array([r.out for r in sorted(done, key=lambda r: r.rid)])
+    np.testing.assert_array_equal(got, live_families[f"{arch}/tokens"])
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_engine_serves_a_ragged_wave_as_jax(live_families, arch):
+    model = _model(_flat(live_families, arch), arch, "cpu")
+    eng = ServingEngine(model, 2, MAX_LEN, device="cpu")
+    assert eng.ragged
+    for rid, n in enumerate((20, 9, 14)):
+        eng.submit(Request(rid, _prompts()[f"prompt{rid}"][:n], 6))
+    done = eng.run()
+    np.testing.assert_array_equal([r.rid for r in done],
+                                  live_families[f"{arch}/order"])
+    got = np.array([r.out for r in sorted(done, key=lambda r: r.rid)])
+    np.testing.assert_array_equal(got, live_families[f"{arch}/tokens"])
+
+
+@pytest.mark.parametrize("arch", MEMORY_ARCHS)
+def test_generate_with_memory_matches_jax(live_families, arch):
+    model = _model(_flat(live_families, arch), arch, "cpu")
+    p0 = _prompts()["prompt0"][:128]
+    tokens = (np.stack([p0, p0 + 1]) % 512).astype(np.int64)
+    batch = _memory_batch(_memory_inputs(), arch, tokens, "cpu")
+    got = generate(model, batch, 6, MAX_LEN)
+    assert got.shape == (2, 6) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), live_families[f"{arch}/generate"])
+
+
+@pytest.mark.parametrize("arch", MEMORY_ARCHS)
+def test_engine_refuses_the_memory_families(live_families, arch):
+    """The engine serves token-only batches; the JAX engine fails at the
+    first prefill of these families, the port's refuses them up front."""
+    assert int(live_families[f"{arch}/engine_failed"]) == 1
+    model = Model(get_smoke_config(arch), device="cpu")
+    with pytest.raises(ValueError, match="token-only"):
+        ServingEngine(model, 2, 32, device="cpu")
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_mixed_lengths_in_a_recurrent_wave_raise(arch):
+    model = Model(get_smoke_config(arch), device="cpu")
+    eng = ServingEngine(model, 2, 32, device="cpu")
+    wave = [Request(0, np.arange(8), 2), Request(1, np.arange(12), 2)]
+    with pytest.raises(ValueError, match="mixed prompt lengths"):
+        eng._run_wave(wave)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_cuda_families_fixture_replays_through_the_kernel(family_fixture,
+                                                          arch):
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    before = FA.launches["flash_attention"]
+    _check_family_replay(family_fixture, arch, dev)
+    # causal self-attention prefills of 128 tokens: one for the logits,
+    # one for the served tokens
+    per = sum(k in ("attn", "attn_local", "attn_moe", "shared_attn",
+                    "dec_cross") for k in layer_kinds(get_smoke_config(arch)))
+    assert FA.launches["flash_attention"] == before + 2 * per
