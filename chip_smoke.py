@@ -240,11 +240,41 @@ toolkit. Phases, in order; any failure exits non-zero:
                drop_frac and lb_loss of its first `moe_ffn` call at the
                prefill shape, and one profiled prefill's device time by
                kernel with flash's share (its launches counted again).
- 11. report  — one JSON line of the kernels (with each BCPNN kernel's
+ 11. train   — LM training (`repro_torch.train`, `repro_torch.launch.train`),
+               after printing the GiB that earlier phases leave allocated
+               (at the start of phase 10 too):
+               11a. tests/fixtures/train_smoke.npz (written by
+                   tests/fixtures/capture_train.py) on the card at float32,
+                   TF32 off: every LM id's smoke config, its first-step
+                   gradients and 20 steps of AdamW(lr=1e-3, warmup 5) on
+                   MarkovLM batches of 4 x 16, held to the bounds of
+                   tests/test_torch_train.py.
+               11b. qwen2-1.5b at full width (1.54 B float32 parameters,
+                   bf16 compute, remat on, dense attention) through
+                   `train(..., smoke=False)`: batch 8 x seq 1024,
+                   MarkovLM seed 0, 30 steps of the launcher's AdamW
+                   (warm-up 20) at lr 5e-4 (TRAIN_LR: its default 3e-3
+                   diverges at this width). The launch counters are set to 0
+                   just before: no kernel may launch (the flash kernel has
+                   no backward). Every loss finite, the mean of the last 5
+                   below that of the first 5. Prints ms a step (the median
+                   of steps 3-29 but the profiled one, host clock to the
+                   loss's host read), tokens/s, peak GiB, the losses and
+                   grad norms, and step 10's device time by row (GEMMs,
+                   casts, attention, cross entropy, the optimizer; from a
+                   torch.profiler trace, by each kernel's launching op).
+               11c. the same run stopped at step 20 (`AsyncCheckpointer`
+                   at the end, in a temporary directory under build/,
+                   removed afterwards) and resumed by a second `train`
+                   call (`restore_latest`) to step 30: its losses within
+                   rtol 1e-5, atol 1e-6 of 11b's, and how many are bit for
+                   bit.
+ 12. report  — one JSON line of the kernels (with each BCPNN kernel's
                launches on the phase 8 paths, counted at capture, and on
                the sharded paths of phase 9 under ``launches_by_path``;
                flash's launches are the LM serving runs' of phases 7 and
-               10, by model under ``launches_by_path``, and its numbers at
+               10, by model under ``launches_by_path``, beside phase
+               11b's training run, which launches none, and its numbers at
                every phase 6 shape under ``by_shape``), then the last line
                {"ok": true, "device": {...}}.
 
@@ -290,14 +320,12 @@ def fail(msg):
 
 
 def ext_tensor(p, T, width=8, lam=4.0, seed=0):
-    """Poisson external input, as benchmarks/tick_loop.py stages it."""
-    rng = np.random.default_rng(seed)
-    out = np.full((T, p.n_hcu, width), p.rows, np.int32)
-    for t in range(T):
-        for h in range(p.n_hcu):
-            n = min(width, rng.poisson(lam))
-            out[t, h, :n] = rng.integers(0, p.rows, n)
-    return out
+    """Poisson external input (T, H, width) int32, as benchmarks/tick_loop.py
+    stages it: `repro_torch.data.poisson_external_drive`'s ticks."""
+    import torch
+    from repro_torch.data import poisson_external_drive
+    return torch.stack(list(poisson_external_drive(
+        p, T, seed=seed, width=width, lam=lam, device="cpu"))).numpy()
 
 
 def max_err(got, want):
@@ -2773,6 +2801,9 @@ def phase_sharded(report):
     from repro_torch.core.params import human_scale
     from repro_torch.launch.mesh import make_bcpnn_mesh
     from repro_torch.launch.ranks import spawn_ranks
+    mem = lambda where: print(f"sharded: {allocated_gib():.3f} GiB "
+                              f"allocated {where}")
+    mem("at the start of the phase")
     p = human_scale(n_hcu=256)
     S = SHARD_TICKS
     ext = torch.from_numpy(ext_tensor(p, 3 * S)).cuda()
@@ -2806,8 +2837,10 @@ def phase_sharded(report):
             del local
             b = sharded_nccl("9b default", p, ext, mesh,
                              DD.default_route_config(p, p.n_hcu, 1), want_b)
+            mem("after 9a and 9b")
         finally:
             dist.destroy_process_group()
+        mem("after destroy_process_group")
         paths["sharded_nccl"] = a["launches_at_capture"]
         paths["sharded_nccl_default_rc"] = b["launches_at_capture"]
         torch.cuda.empty_cache()
@@ -2820,8 +2853,11 @@ def phase_sharded(report):
         spawn_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    mem("after the gloo ranks (state100 held)")
     del state100
     torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    mem("after del state100 and ipc_collect")
     c = [res[r]["9c"] for r in range(SHARD_RANKS)]
     for r, x in enumerate(c):
         if not (x["fired_equal"] and x["leaves_equal"]) or \
@@ -2868,6 +2904,214 @@ def phase_sharded(report):
             entry.setdefault("launches_by_path", {}).update(
                 {k: v[entry["name"]] for k, v in paths.items()})
     print("sharded summary:", json.dumps({"9a": a, "9b": b, "9c": c}))
+
+
+# ---------------------------------------------------------------------------
+# phase 11: LM training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_STEPS, TRAIN_STOP = 30, 20      # (c): stop at TRAIN_STOP, resume
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+TRAIN_PROFILED = 10                   # the step (b) profiles
+# the launcher's default lr, 3e-3 (sized for the smoke configs), diverges
+# at full width: on an H100, losses 12.25 -> 13.22 in 30 steps and a grad
+# norm of 11.7 at step 13 (PERF.md §5, phase 11b)
+TRAIN_LR = 5e-4
+TRAIN_SKIP = 3                        # steps left out of the median
+
+
+def allocated_gib():
+    import torch
+    return torch.cuda.memory_allocated() / 2**30
+
+
+def phase_train_fixture(dev):
+    """11a: tests/fixtures/train_smoke.npz on the card at float32 (TF32
+    off): every family's first-step gradients and 20 train steps held to
+    the CPU test's bounds (tests/test_torch_train.py)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_train as TT
+    from repro_torch.configs import ARCH_IDS
+    ref = TT.load_fixture()
+    t0 = time.perf_counter()
+    bad = []
+    for arch in ARCH_IDS:
+        g = TT.fixture_gaps(ref, arch, *TT.run_fixture(ref, arch, dev))
+        try:
+            TT.check_gaps(arch, g)
+        except AssertionError:
+            bad.append(arch)
+        print(f"train fixture {arch} on the card: first-step gradient "
+              f"{g['grad0']:.3g}, step 0 {max(g['step0'].values()):.3g}, "
+              f"steps {max(g['steps'].values()):.3g}, parameters "
+              f"{g['param_units']:.3g} lr*steps, moments "
+              f"{g['moments']:.3g}, norms {g['norms']:.3g}"
+              + (" BEYOND THE BOUNDS" if arch in bad else ""))
+    if bad:
+        fail(f"train fixture on the card: {bad} beyond the bounds of "
+             f"tests/test_torch_train.py")
+    print(f"train fixture: {len(ARCH_IDS)} families within the bounds in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+# profile rows of a training step: (row, test on the launching op's name
+# chain, innermost first); the first row that matches takes the kernel
+TRAIN_ROWS = (
+    ("optimizer (AdamW, clip norm)", lambda ops: "adamw" in ops),
+    ("cross entropy (V = 151936)",
+     lambda ops: "cross_entropy" in ops or any(
+         k in " ".join(ops) for k in ("LogsumexpBackward", "GatherBackward"))),
+    ("GEMMs, attention (float32 bmm)", lambda ops: ops[0] == "aten::bmm"),
+    ("GEMMs (bf16 mm: projections, MLP, LM head)",
+     lambda ops: ops[0] in ("aten::mm", "aten::addmm")),
+    ("dtype casts (per-matmul bf16 and float32)",
+     lambda ops: ops[0] == "aten::copy_" and "aten::_to_copy" in ops),
+    ("attention softmax and mask",
+     lambda ops: ops[0] in ("aten::_softmax", "aten::_softmax_backward_data",
+                            "aten::where")),
+    ("other (norms, RoPE, silu, residuals, embedding)", lambda ops: True),
+)
+
+
+def train_rows(prof):
+    """Device ms of a profiled step by TRAIN_ROWS, from each kernel's
+    launching op and that op's ancestors."""
+    from torch.autograd import DeviceType
+    rows = {name: 0.0 for name, _ in TRAIN_ROWS}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        ops, up = [], e
+        while up is not None:
+            ops.append(up.name)
+            up = up.cpu_parent
+        row = next(name for name, test in TRAIN_ROWS if test(ops))
+        rows[row] += sum(k.duration for k in e.kernels) / 1e3
+    return rows
+
+
+def phase_train(dev, smi):
+    """11b and 11c: qwen2-1.5b at full width through `launch.train.train`,
+    then stopped at TRAIN_STOP and resumed from its checkpoint. Returns
+    the flash kernel's launches in 11b (0: training attends densely)."""
+    import shutil
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    torch.cuda.empty_cache()
+    held = allocated_gib()
+    print(f"train: {held:.3f} GiB allocated at the start of the phase")
+    torch.cuda.reset_peak_memory_stats()
+    steps, prof = [], {}
+
+    def on_step(step, metrics, seconds):
+        steps.append((step, metrics, seconds))
+        if step == TRAIN_PROFILED - 1:
+            prof["p"] = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+        elif step == TRAIN_PROFILED:
+            torch.cuda.synchronize()
+            prof["p"].__exit__(None, None, None)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    model, losses = train(TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                          smoke=False, lr=TRAIN_LR, log_every=10,
+                          on_step=on_step)
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    if any(counts.values()):
+        fail(f"train: kernels launched {json.dumps(counts)}, expected none "
+             f"(dense attention)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cfg = model.cfg
+    n_params = sum(t.numel() for t in model.parameters())
+    ckpt_gb = 3 * 4 * n_params / 1e9      # params, mu, nu in float32
+    del model
+    torch.cuda.empty_cache()
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        fail(f"train: losses {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first:
+        fail(f"train: the mean of the last 5 losses {last} is not below "
+             f"that of the first 5, {first}")
+    ms = [s * 1e3 for step, _, s in steps
+          if step >= TRAIN_SKIP and step != TRAIN_PROFILED]
+    med = statistics.median(ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    gnorms = [m["grad_norm"] for _, m, _ in steps]
+    print(f"train [{smi}]: {cfg.arch_id} at full width ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, vocab {cfg.vocab}, {n_params} "
+          f"float32 parameters, {cfg.compute_dtype} compute, remat "
+          f"{cfg.remat}, attn_impl {cfg.attn_impl}), batch {TRAIN_BATCH} x "
+          f"seq {TRAIN_SEQ}, MarkovLM seed 0: {TRAIN_STEPS} steps in "
+          f"{wall:.2f} s; ms a step (host clock to the loss's host read) "
+          f"median {med:.2f} over steps {TRAIN_SKIP}-{TRAIN_STEPS - 1} but "
+          f"the profiled {TRAIN_PROFILED} (min {min(ms):.2f}, max "
+          f"{max(ms):.2f}; first {steps[0][2] * 1e3:.1f}); "
+          f"{tokens / med * 1e3:.0f} tokens/s; peak {peak:.2f} GiB "
+          f"allocated ({peak - held:.2f} above the {held:.2f} held); "
+          f"losses first {losses[0]:.4f}, mean of the first 5 {first:.4f}, "
+          f"last 5 {last:.4f}, last {losses[-1]:.4f}; launches "
+          f"{json.dumps(counts)}")
+    print(f"train losses: {[round(x, 4) for x in losses]}")
+    print(f"train grad norms: {[round(x, 3) for x in gnorms]}")
+    rows = train_rows(prof["p"])
+    total = sum(rows.values())
+    if not total:
+        fail("train: no CUDA activity in the profiled step")
+    print(f"train profiled step {TRAIN_PROFILED} [{smi}]: device busy "
+          f"{total:.2f} ms (host {steps[TRAIN_PROFILED][2] * 1e3:.1f} ms, "
+          f"profiled)")
+    for name, t in sorted(rows.items(), key=lambda r: -r[1]):
+        print(f"  device {t:9.3f} ms  {t / total:6.1%}  {name}")
+    kernel_rows, _ = device_rows(prof["p"])
+    print_rows(kernel_rows)
+    del prof["p"]
+
+    # 11c: stop at TRAIN_STOP, resume from the checkpoint to TRAIN_STEPS
+    base = ROOT / "build"
+    base.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=base, prefix="train_ckpt_")
+    step_s = []
+    timed_steps = lambda step, metrics, seconds: step_s.append(seconds)
+    print(f"train resume: {shutil.disk_usage(tmp).free / 1e9:.1f} GB free "
+          f"under build/")
+    try:
+        t0 = time.perf_counter()
+        _, head = train(TRAIN_ARCH, TRAIN_STOP, TRAIN_BATCH, TRAIN_SEQ,
+                        smoke=False, ckpt_dir=tmp, lr=TRAIN_LR,
+                        log_every=1000, on_step=timed_steps)
+        t1 = time.perf_counter()
+        _, tail = train(TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                        smoke=False, ckpt_dir=tmp, lr=TRAIN_LR,
+                        log_every=1000, on_step=timed_steps)
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    resumed = head + tail
+    if len(tail) != TRAIN_STEPS - TRAIN_STOP:
+        fail(f"train resume: {len(tail)} steps after the restore")
+    if not np.allclose(resumed, losses, rtol=1e-5, atol=1e-6):
+        fail(f"train resume: losses {resumed} differ from the straight "
+             f"run's {losses}")
+    same = [a == b for a, b in zip(resumed, losses)]
+    io = (t2 - t0) - sum(step_s)
+    print(f"train resume [{smi}]: {TRAIN_STOP} steps and a checkpoint in "
+          f"{t1 - t0:.1f} s, restore_latest and {TRAIN_STEPS - TRAIN_STOP} "
+          f"steps and a checkpoint in {t2 - t1:.1f} s ({io:.1f} s of it not "
+          f"in steps: two saves of {ckpt_gb:.2f} GB, a restore, two model "
+          f"inits); losses within rtol "
+          f"1e-5 of the straight run's; bit for bit at "
+          f"{sum(same)} of {len(same)} steps (max |diff| "
+          f"{max(abs(a - b) for a, b in zip(resumed, losses)):.3g}, steps "
+          f"{TRAIN_STOP}-{TRAIN_STEPS - 1} after the restore)")
+    return counts["flash_attention"]
 
 
 def main():
@@ -2921,8 +3165,13 @@ def main():
     done("lm")
     phase_sharded(report)
     done("sharded")
+    print(f"families: {allocated_gib():.3f} GiB allocated at the start of "
+          f"the phase")
     by_path.update(phase_families(dev, smi))
     done("families")
+    phase_train_fixture(dev)
+    by_path[f"{TRAIN_ARCH} train"] = phase_train(dev, smi)
+    done("train")
     flash["launches"] = sum(by_path.values())
     flash["launches_by_path"] = by_path
     report.append(flash)
@@ -2930,7 +3179,8 @@ def main():
           "computes a cell-math pass; flash_attention's is "
           "scaled_dot_product_attention (enable_gqa) at the qwen2-1.5b bf16 "
           "shape (by_shape: at each shape without softcap or window); its "
-          "launches are the LM serving runs' of phases 7 and 10")
+          "launches are the LM serving runs' of phases 7 and 10; training "
+          "(phase 11b) launches none of the six kernels")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

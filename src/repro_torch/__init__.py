@@ -19,10 +19,12 @@ Ported so far:
   associative-memory protocol (`repro_torch.experiments`) and BCPNN
   recall serving (`repro_torch.launch.serve_bcpnn.BCPNNRecallServer`,
   session lanes `stack_sessions` / `write_sessions` / `take_session`);
-* the LM serving path of the dense-family transformer
-  (`repro_torch.models`, `repro_torch.train.serve_step`,
-  `repro_torch.launch.serve.ServingEngine`), with prefill attention as a
-  hand-written Hopper flash-attention kernel.
+* LM serving for every family of the JAX package (`repro_torch.models`,
+  `repro_torch.train.serve_step`, `repro_torch.launch.serve.ServingEngine`),
+  with prefill attention as a hand-written Hopper flash-attention kernel;
+* the synthetic data streams (`repro_torch.data`) and LM training on one
+  device (`repro_torch.train`: AdamW, the train step with remat;
+  `repro_torch.launch.train`), whose checkpoints each package restores.
 
 All six kernels live in `repro_torch.kernels`. ROADMAP.md lists what is
 still to port.

@@ -37,6 +37,7 @@ import shutil
 import threading
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -127,6 +128,13 @@ def _sweep_stale_tmp(ckpt_dir: str):
             shutil.rmtree(os.path.join(ckpt_dir, d), ignore_errors=True)
 
 
+def _io_pool() -> ThreadPoolExecutor:
+    """Threads for the leaves' file I/O and checksums: numpy's file reads
+    and writes and zlib's crc32 release the GIL, so the leaves of a large
+    tree move in parallel."""
+    return ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1))
+
+
 def _write(ckpt_dir: str, step: int, leaves, treedef: str, keep_last: int,
            extra_meta: dict | None) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -134,10 +142,13 @@ def _write(ckpt_dir: str, step: int, leaves, treedef: str, keep_last: int,
     final = os.path.join(ckpt_dir, f"step_{step}")
     tmp = os.path.join(ckpt_dir, f".tmp_step_{step}_{os.getpid()}")
     os.makedirs(tmp, exist_ok=True)
-    checksums = []
-    for i, arr in enumerate(leaves):
+
+    def write_leaf(i, arr):
         np.save(os.path.join(tmp, f"leaf_{i}.npy"), arr)
-        checksums.append(_leaf_checksum(arr))
+        return _leaf_checksum(arr)
+
+    with _io_pool() as pool:
+        checksums = list(pool.map(write_leaf, range(len(leaves)), leaves))
     meta = dict(extra_meta or {})
     meta.update({"step": step, "n_leaves": len(leaves),
                  "checksums": checksums, "treedef": treedef,
@@ -297,16 +308,17 @@ def restore(ckpt_dir: str, step: int, template, migrate=None):
         raise ValueError(
             f"step {step}: checkpoint has {n_have} leaves, template wants "
             f"{len(leaves)} (older-format checkpoint? see restore_network)")
-    out = [np.load(os.path.join(d, f"leaf_{i}.npy"))
-           for i in range(len(leaves))]
-    sums = (meta or {}).get("checksums")
-    if sums is not None:
-        bad = [i for i, a in enumerate(out)
-               if i < len(sums) and _leaf_checksum(a) != sums[i]]
-        if bad:
-            raise CheckpointCorruption(
-                f"step {step}: leaf checksum mismatch at {bad} "
-                f"(torn write or bit rot under {d})")
+    with _io_pool() as pool:
+        out = list(pool.map(np.load, [os.path.join(d, f"leaf_{i}.npy")
+                                      for i in range(len(leaves))]))
+        sums = (meta or {}).get("checksums")
+        if sums is not None:
+            got = list(pool.map(_leaf_checksum, out[:len(sums)]))
+            bad = [i for i, c in enumerate(got) if c != sums[i]]
+            if bad:
+                raise CheckpointCorruption(
+                    f"step {step}: leaf checksum mismatch at {bad} "
+                    f"(torn write or bit rot under {d})")
     if migrate is not None:
         out = [migrate(a, t) for a, t in zip(out, leaves)]
     for i, (a, t) in enumerate(zip(out, leaves)):

@@ -25,9 +25,13 @@ the audio encoder's layers (``['encoder']['stack']...``) are stacked along
 leaves (``['shared_attn']...``, ``['vision_proj']``, ``['pos_embed']``,
 ``['encoder']['final_norm']``) map name for name. Each leaf keeps the
 dtype the port's model gives it (float32 routers, SSM gates and cross
-gates whatever ``param_dtype`` is).
+gates whatever ``param_dtype`` is). `lm_tree` builds the same tree
+(nested dicts and lists) of tensors, so that a checkpoint of the port's
+``(params, opt_state)`` has the JAX package's leaves in its order.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -181,3 +185,79 @@ def lm_model_from_numpy(flat, cfg: ArchConfig, device) -> Model:
     model = Model(cfg, device="meta")
     model.load_state_dict(lm_params_from_numpy(flat, cfg, device), assign=True)
     return model
+
+
+_KEY_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
+
+
+def _key_parts(key: str) -> tuple:
+    """A keystr path's parts: dict keys (str) and list indices (int)."""
+    return tuple(int(i) if i else k for k, i in _KEY_PART.findall(key))
+
+
+def lm_leaf_groups(cfg: ArchConfig, names) -> list:
+    """The JAX parameter tree's leaves in `jax.tree.flatten`'s order (dict
+    keys sorted, lists in order): (keystr, stacked, the port's names that
+    make the leaf, in repeat order) for the port's state-dict ``names``."""
+    slots = _layer_slots(cfg)
+    groups: dict[str, list] = {}
+    for name in names:
+        key, r = _jax_path(name, slots)
+        groups.setdefault(key, []).append((-1 if r is None else r, name))
+    return [(key, groups[key][0][0] >= 0, [n for _, n in sorted(groups[key])])
+            for key in sorted(groups, key=_key_parts)]
+
+
+def _stack_leaf(ts, stacked: bool):
+    if not stacked:
+        return ts[0]
+    return ts[0][None] if len(ts) == 1 else torch.stack(ts)
+
+
+def lm_tree(tensors: dict, cfg: ArchConfig, leaf=_stack_leaf):
+    """The JAX package's parameter tree of ``tensors`` (port name ->
+    tensor: the parameters, or optimizer moments congruent with them):
+    nested dicts and lists, each stacked leaf ``leaf(tensors, True)`` (by
+    default `torch.stack` over repeats, a view where there is one),
+    each other leaf ``leaf([tensor], False)``. A pattern position without
+    parameters (zamba2's shared block) is None, as in the JAX tree."""
+    tree: dict = {}
+    for key, stacked, names in lm_leaf_groups(cfg, tensors):
+        *path, last = _key_parts(key)          # a leaf is a dict entry
+        node = tree
+        for part, nxt in zip(path, path[1:] + [last]):
+            node = _child(node, part, list if isinstance(nxt, int) else dict)
+        node[last] = leaf([tensors[n] for n in names], stacked)
+    return tree
+
+
+def _child(node, part, make):
+    """``node[part]`` (a dict key or a list index), made by ``make()``
+    where it is missing; a list grows with None."""
+    if isinstance(part, int):
+        node.extend([None] * (part + 1 - len(node)))
+        if node[part] is None:
+            node[part] = make()
+        return node[part]
+    return node.setdefault(part, make())
+
+
+def lm_tree_template(tensors: dict, cfg: ArchConfig) -> dict:
+    """`lm_tree`'s structure with uninitialised host tensors of each
+    leaf's shape and dtype: a restore template that costs no copy."""
+    return lm_tree(tensors, cfg, lambda ts, stacked: torch.empty(
+        ((len(ts),) if stacked else ()) + tuple(ts[0].shape),
+        dtype=ts[0].dtype))
+
+
+def lm_tree_leaves(tree, cfg: ArchConfig, names) -> dict:
+    """The inverse of `lm_tree`: port name -> tensor (a view of its leaf,
+    one repeat of a stacked leaf)."""
+    out = {}
+    for key, stacked, group in lm_leaf_groups(cfg, names):
+        node = tree
+        for part in _key_parts(key):
+            node = node[part]
+        for r, n in enumerate(group):
+            out[n] = node[r] if stacked else node
+    return out

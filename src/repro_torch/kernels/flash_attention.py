@@ -182,8 +182,35 @@ def flash_attention_kernel(q, k, v, *, scale: float, causal: bool = True,
     8 elements); Sq and Skv multiples of 128; hd a multiple of 4 up to
     256. ``kv_len`` a Python int (no device read). Returns a new tensor of
     q's shape and dtype. Launches on the current stream and never
-    synchronises.
+    synchronises. The kernel has no backward (nor has the JAX package's):
+    where autograd records through q, k or v, the output's backward
+    raises instead of leaving their gradients silently out.
     """
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap,
+              kv_len=kv_len)
+    if torch.is_grad_enabled() and any(torch.is_tensor(t) and t.requires_grad
+                                       for t in (q, k, v)):
+        return _NoBackward.apply(kw, q, k, v)
+    return _launch(q, k, v, **kw)
+
+
+class _NoBackward(torch.autograd.Function):
+    """The kernel as a node of the autograd graph whose backward raises."""
+
+    @staticmethod
+    def forward(ctx, kw, q, k, v):
+        return _launch(q, k, v, **kw)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "flash_attention: the CUDA kernel has no backward; train with "
+            "attn_impl='dense' (the default), as the JAX package does")
+
+
+def _launch(q, k, v, *, scale: float, causal: bool = True, window=None,
+            softcap=None, kv_len=None):
+    """One launch of the forward kernel (`flash_attention_kernel`)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not torch.is_tensor(t) or t.device.type != "cuda":
             where = t.device if torch.is_tensor(t) else type(t).__name__

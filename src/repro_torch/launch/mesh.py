@@ -10,7 +10,7 @@ card (gloo; NCCL refuses two ranks on one GPU).
 
 Nothing here touches a process group while the module is imported.
 `make_production_mesh` and `make_host_mesh` build the LM substrate's
-(data, model) meshes, which wait for ROADMAP queue A item 8, and raise.
+(data, model) meshes, which wait for ROADMAP queue A item 8c, and raise.
 """
 from __future__ import annotations
 
@@ -107,13 +107,13 @@ def make_elastic_mesh(n_hcu: int, ranks=None, *, group=None,
 
 def make_production_mesh(*, multi_pod: bool = False):
     """The LM substrate's (data, model) mesh: not ported yet (ROADMAP queue
-    A item 8)."""
+    A item 8c)."""
     raise NotImplementedError("make_production_mesh: the LM sharding is not "
-                              "ported to PyTorch yet (ROADMAP queue A item 8)")
+                              "ported to PyTorch yet (ROADMAP queue A item 8c)")
 
 
 def make_host_mesh(shape=None, axes=("data", "model")):
     """The LM substrate's small test mesh: not ported yet (ROADMAP queue A
-    item 8)."""
+    item 8c)."""
     raise NotImplementedError("make_host_mesh: the LM sharding is not "
-                              "ported to PyTorch yet (ROADMAP queue A item 8)")
+                              "ported to PyTorch yet (ROADMAP queue A item 8c)")

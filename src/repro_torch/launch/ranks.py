@@ -8,7 +8,9 @@ starts ``world`` processes (the ``spawn`` method), joins them into one
 directory (so that concurrent launches never share a rendezvous), runs
 ``fn(rank, world, *args)`` on each, and returns {rank: its result}. A
 result travels back pickled: numpy arrays and plain values, not CUDA
-tensors. An NCCL group takes one rank per GPU, rank r on ``cuda:r``;
+tensors. CUDA tensors in ``args`` reach the ranks through CUDA IPC; each
+rank frees them when ``fn`` returns, so the parent's copy is freed (after
+`torch.cuda.ipc_collect`) once it drops it. An NCCL group takes one rank per GPU, rank r on ``cuda:r``;
 several ranks on one card, and ranks on the CPU, take gloo.
 """
 from __future__ import annotations
@@ -25,7 +27,12 @@ import torch.multiprocessing as mp
 
 
 def _rank_main(rank: int, fn, world: int, backend: str, store: str,
-               results, timeout_s: float, args) -> None:
+               results, timeout_s: float, box: list) -> None:
+    # The process object keeps its arguments until the interpreter exits,
+    # and a CUDA tensor received through CUDA IPC is released to its
+    # producer only when freed here: so the arguments come in a list that
+    # is emptied, and they go when this returns.
+    args = box.pop()
     device_id = None
     if backend == "nccl":
         device_id = torch.device("cuda", rank)
@@ -36,6 +43,7 @@ def _rank_main(rank: int, fn, world: int, backend: str, store: str,
     try:
         results.put((rank, fn(rank, world, *args)))
     finally:
+        del args
         dist.destroy_process_group()
 
 
@@ -53,7 +61,7 @@ def spawn_ranks(fn, world: int, *, backend: str = "gloo", args=(),
     with tempfile.TemporaryDirectory() as tmp:
         procs = mp.start_processes(
             _rank_main, args=(fn, world, backend, os.path.join(tmp, "store"),
-                              results, timeout_s, args),
+                              results, timeout_s, [args]),
             nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout_s
         try:

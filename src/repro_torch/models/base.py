@@ -72,9 +72,9 @@ class ArchConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
 
-    # substrate behaviour (remat, scan_layers, seq_parallel_residual and
-    # moe_shard_cap are kept as data; the port's serving path has no scan,
-    # no remat and no mesh)
+    # substrate behaviour: remat recomputes each block in the backward
+    # (`Model._block`); scan_layers, seq_parallel_residual and
+    # moe_shard_cap are kept as data (the port has no scan and no mesh)
     remat: bool = True
     scan_layers: bool = True
     attn_impl: str = "dense"                # dense | chunked | pallas_flash

@@ -16,8 +16,11 @@ Every architecture is a sequence of blocks of a few kinds:
 `build_stack_spec` is the JAX package's. The model's decoder layers are
 an `nn.ModuleList` in stack order (segment, then repeat, then pattern
 position), where the JAX package stacks each pattern position's
-parameters along the repeats and scans them; serving needs neither scan
-nor remat. The ``shared_attn`` positions hold no parameters: the one
+parameters along the repeats and scans them. Where autograd records and
+``cfg.remat`` is set (training), each block runs under
+`torch.utils.checkpoint` and is recomputed in the backward, as the JAX
+package wraps each scanned step in `jax.checkpoint`; serving runs the
+blocks as they are. The ``shared_attn`` positions hold no parameters: the one
 shared block is `Model.shared_attn` (the JAX package's
 ``params["shared_attn"]``), applied at each of them with its own cache.
 Each layer's cache is its recurrent state for the recurrent kinds and a
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import moe as moe_mod
@@ -302,11 +306,27 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def _block(self, layer, x, kind, **kw):
+        """`apply_block`, under `checkpoint` where autograd records, the
+        config sets remat and no cache is written (the JAX package's
+        condition): recomputed in the backward."""
+        if self.cfg.remat and torch.is_grad_enabled() and \
+                kw.get("cache") is None and not kw.get("decode"):
+            return checkpoint(apply_block, layer, x, self.cfg, kind,
+                              use_reentrant=False, preserve_rng_state=False,
+                              **kw)
+        return apply_block(layer, x, self.cfg, kind, **kw)
+
     # ---------------- embedding / heads ----------------
     def _embed(self, tokens):
         cfg = self.cfg
-        # gather, then cast: the same values as casting the whole table first
-        x = self.embed[tokens].to(cfg.cdtype)
+        if torch.is_grad_enabled() and self.embed.requires_grad:
+            # cast the table, then gather, as the JAX package does: the
+            # gradient is then scattered in the compute dtype, as JAX's is
+            x = self.embed.to(cfg.cdtype)[tokens]
+        else:
+            # gather, then cast: the same values, without the table's cast
+            x = self.embed[tokens].to(cfg.cdtype)
         if cfg.embed_scale_sqrt_d:
             # sqrt(d_model) rounded to the compute dtype first, as in JAX
             x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype))
@@ -327,8 +347,8 @@ class Model(nn.Module):
         shared = getattr(self, "shared_attn", None)
         new_caches, aux = [], 0.0
         for i, layer in enumerate(self.layers):
-            x, c, a = apply_block(
-                layer, x, self.cfg, layer.kind, positions=positions,
+            x, c, a = self._block(
+                layer, x, layer.kind, positions=positions,
                 memory=memory, memory_positions=memory_positions,
                 cache=None if caches is None else caches[i],
                 shared_params=shared, decode=decode, pad=pad)
@@ -355,8 +375,7 @@ class Model(nn.Module):
             mem = batch["frames"].to(cd) @ enc.frame_proj.to(cd)
             pos = torch.arange(mem.shape[1], device=mem.device)
             for layer in enc.stack:
-                mem, _, _ = apply_block(layer, mem, cfg, "enc_attn",
-                                        positions=pos)
+                mem, _, _ = self._block(layer, mem, "enc_attn", positions=pos)
             return rms_norm(mem, enc.final_norm, cfg.rms_eps), pos
         return None, None
 

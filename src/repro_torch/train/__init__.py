@@ -1,6 +1,11 @@
-"""Serving steps of the port (training is not ported yet: ROADMAP queue A
-item 8)."""
+"""Training and serving steps of the port (the port of `repro.train`)."""
+from repro_torch.train.optimizer import AdamW, AdamWState
+from repro_torch.train.train_step import (cross_entropy, make_eval_step,
+                                          make_loss_fn, make_train_step,
+                                          model_params)
 from repro_torch.train.serve_step import (generate, make_decode_step,
                                           make_prefill, sample)
 
-__all__ = ["generate", "make_decode_step", "make_prefill", "sample"]
+__all__ = ["AdamW", "AdamWState", "cross_entropy", "make_eval_step",
+           "make_loss_fn", "make_train_step", "generate", "make_decode_step",
+           "make_prefill", "model_params", "sample"]

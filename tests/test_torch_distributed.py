@@ -488,3 +488,53 @@ def test_one_nccl_rank_through_graphs_equals_local_run_on_cuda():
     assert got["spikes"] > 0
     assert got["same"]
     assert got["captured"] == [5, 7]
+
+
+def _nccl_memory_rank(rank, world):
+    """The device memory allocated before a Simulator, after its
+    run_sharded through CUDA-graph chunks and ``del``, and after the
+    process group is gone."""
+    import gc
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    sim = Simulator(P8, key=0, worklist=True, chunk=7)
+    held = torch.cuda.memory_allocated()
+    sim.run_sharded(_one_rank_ext(P8, T=19),
+                    rc=DD.lossless_route_config(P8, P8.n_hcu))
+    del sim
+    gc.collect()
+    torch.cuda.synchronize()
+    return dict(before=before, held=held,
+                after=torch.cuda.memory_allocated())
+
+
+@pytest.mark.cuda
+def test_run_sharded_frees_its_memory_on_cuda():
+    """A 1-rank NCCL run_sharded leaves nothing allocated once its
+    Simulator is gone: its state, connectivity, graphs and driver."""
+    _cuda()
+    got = spawn_ranks(_nccl_memory_rank, 1, backend="nccl", timeout_s=240)[0]
+    assert got["held"] > got["before"]
+    assert got["after"] == got["before"], got
+
+
+def _touch_rank(rank, world, t):
+    """Read a tensor the parent shared through CUDA IPC."""
+    return float(t.sum())
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_sent_to_ranks_are_freed():
+    """A CUDA tensor the parent passes to spawned ranks (CUDA IPC) is
+    freed in the parent once the ranks have exited and it is dropped."""
+    _cuda()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t = torch.ones(1 << 22, device="cuda")
+    got = spawn_ranks(_touch_rank, 2, backend="gloo", args=(t,),
+                      timeout_s=120)
+    assert got == {0: float(1 << 22), 1: float(1 << 22)}
+    del t
+    torch.cuda.ipc_collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before

@@ -44,8 +44,10 @@ measurements (largest float32 gap otherwise 4.0e-5, zamba2's forward):
 * zamba2 and xlstm at bf16 (`RECURRENT`): the recurrent mixers amplify
   bf16 rounding, so the JAX package's own bf16 logits lie up to 0.056
   (zamba2) and 0.39 (xlstm) relative from its float32 ones. The bound is
-  max(0.03, twice that gap at the same stage); measured: zamba2 0.075
-  against 0.11, xlstm 0.28 against 0.77.
+  max(0.03, twice that gap at the same stage); measured: zamba2 0.050
+  against 0.11, xlstm 0.23 against 0.77 (0.075 and 0.28 while the
+  mixers' silu rounded once; tests/test_torch_ssm.py holds the mixers
+  themselves at bf16 far tighter).
 
 At bf16 a router near-tie can route a token differently in the two
 frameworks (llama4's forward then differs by 1.0 relative). So for the

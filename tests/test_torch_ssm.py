@@ -23,6 +23,22 @@ the S = 256 cases run at the realistic dt of the first case.
 Tolerance: rtol = atol = 1e-4 on outputs and states (the largest measured
 gap is 9.4e-5 on an mLSTM state of magnitude 8.9, and 4.5e-5 on the
 big-dt Mamba2 output, from float32 exps and sums in another order).
+
+At bfloat16 compute (`BF16_CASES`, S = 64, the input in bf16 as the
+model's residual stream is): ``*_seq``, then ``*_seq(return_state=True)``
+and three ``*_step`` calls, outputs and states, each held by max |diff| /
+max |reference| against JAX's bf16 run (`BF16_BOUND`). The bounds start
+from the dense family's 0.03 (tests/test_torch_lm.py), which the JAX
+package's own bf16-vs-float32 gap at this level already reaches for
+Mamba2 (0.0345; mLSTM 0.0154, sLSTM 0.0050), so they are sized instead
+from the measured port-vs-JAX gap, as the float32 bound is: Mamba2 0
+on every output (the port's `layers.silu` rounds as `jax.nn.silu` does;
+with `F.silu` the gap was 0.0226), mLSTM 0.0020, sLSTM 0.00047, all on
+``*_seq``; the steps and states lie within 1.3e-6. A bf16 rounding moved
+to another place shows: rounding the Mamba2 intra-chunk term, its dt or
+its step decay to bf16 moves the gap to 0.0056 / 0.0056 / 0.0036, the
+mLSTM gates or its C matrix 0.008 / 0.004, the sLSTM recurrent weights
+0.006.
 """
 import dataclasses
 
@@ -45,6 +61,8 @@ SEQ_CASES = [(name, S) for name, (_, _, lens, _) in MIXERS.items()
              for S in lens]
 N_STEPS = 3
 B = 2
+BF16_CASES = ("mamba2", "mlstm", "slstm")
+BF16_BOUND = {"mamba2": 1e-3, "mlstm": 3e-3, "slstm": 1e-3}
 
 BODY = """
 import dataclasses
@@ -89,6 +107,30 @@ for case, (mixer, arch, lens, plen) in MIXERS.items():
         D = cfg.d_model
         st = (jnp.zeros((xt.shape[0], D)),) * 3 + (jnp.full((xt.shape[0], D), -1e30),)
         OUT[f"{case}/step_empty"] = step(p, xt, st, cfg)[0]
+
+# bfloat16 compute at S = 64
+for case in BF16_CASES:
+    mixer, arch = MIXERS[case][:2]
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="bfloat16")
+    p = {k.split("/")[2]: jnp.asarray(v) for k, v in IN.items()
+         if k.startswith(case + "/p/")}
+    seq = getattr(ssm, mixer + "_seq")
+    step = getattr(ssm, mixer + "_step")
+    tag = f"{case}/bfloat16"
+    x = jnp.asarray(IN["x64"]).astype(cfg.cdtype)
+    OUT[f"{tag}/seq"] = seq(p, x, cfg).astype(jnp.float32)
+    out, state = seq(p, x, cfg, return_state=True)
+    OUT[f"{tag}/prefill"] = out.astype(jnp.float32)
+    for t in range(N_STEPS):
+        xt = jnp.asarray(IN["xs"][:, t:t + 1]).astype(cfg.cdtype)
+        if mixer == "mamba2":
+            y, h, buf = step(p, xt, state[0], cfg, state[1])
+            state = (h, buf)
+        else:
+            y, state = step(p, xt, state, cfg)
+        OUT[f"{tag}/step{t}"] = y.astype(jnp.float32)
+    for i, s in enumerate(jax.tree.leaves(state)):
+        OUT[f"{tag}/state{i}"] = s.astype(jnp.float32)
 """
 
 
@@ -138,7 +180,7 @@ def _inputs():
 def ref():
     ins = _inputs()
     head = (f"MIXERS = {MIXERS!r}\nLENGTHS = {LENGTHS!r}\n"
-            f"N_STEPS = {N_STEPS}\n")
+            f"N_STEPS = {N_STEPS}\nBF16_CASES = {BF16_CASES!r}\n")
     return ins, run_jax(head + BODY, ins)
 
 
@@ -203,6 +245,38 @@ def test_step_from_the_empty_state_matches_jax(ref, case):
     y, _ = _step(mixer, _params(ins, case),
                  torch.from_numpy(ins["xs"][:, :1]), state, cfg)
     _close(y, want[f"{case}/step_empty"], "step from empty")
+
+
+def _bf16_run(ins, case):
+    """The port's bf16 seq, prefill, steps and state at S = 64."""
+    mixer = MIXERS[case][0]
+    cfg = dataclasses.replace(_cfg(case), compute_dtype="bfloat16")
+    p = _params(ins, case)
+    seq = getattr(ssm, mixer + "_seq")
+    x = torch.from_numpy(ins["x64"]).bfloat16()
+    got = {"seq": seq(p, x, cfg)}
+    got["prefill"], state = seq(p, x, cfg, return_state=True)
+    for t in range(N_STEPS):
+        xt = torch.from_numpy(ins["xs"][:, t:t + 1]).bfloat16()
+        got[f"step{t}"], state = _step(mixer, p, xt, state, cfg)
+    for i, s in enumerate(_flat_state(state)):
+        got[f"state{i}"] = s
+    return got
+
+
+def _rel(a, b):
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_bf16_matches_jax(ref, case):
+    ins, want = ref
+    got = _bf16_run(ins, case)
+    for k, v in got.items():
+        if k.startswith(("seq", "prefill", "step")):
+            assert v.dtype == torch.bfloat16, k
+        rel = _rel(v.float().numpy(), want[f"{case}/bfloat16/{k}"])
+        assert rel < BF16_BOUND[case], (k, rel)
 
 
 def test_softplus_and_log_sigmoid_are_jaxs():
