@@ -269,20 +269,40 @@ toolkit. Phases, in order; any failure exits non-zero:
                    call (`restore_latest`) to step 30: its losses within
                    rtol 1e-5, atol 1e-6 of 11b's, and how many are bit for
                    bit.
- 12. report  — one JSON line of the kernels (with each BCPNN kernel's
+ 12. mesh    — LM training through the mesh (`launch.train.train(mesh=
+               ...)`, `launch.shardings`, DTensor parameters):
+               12a. qwen2-1.5b at full width as in 11b, 5 steps, on a
+                   1-rank NCCL group through `make_host_mesh()` (mesh (1,
+                   1)): the launch counters set to 0 just before, no
+                   kernel may launch; the losses bit for bit 11b's first 5.
+                   Prints ms a step (the median of steps 1-4), tokens/s
+                   and peak GiB beside 11b's: the difference is DTensor's
+                   dispatch.
+               12b. 2 gloo ranks spawned on the one card, qwen2-1.5b at
+                   published widths and MESH_LAYERS = 4 of its 28 layers
+                   (a cut for time: gloo stages every collective through
+                   the host; 28 layers fit but take 230 s),
+                   3 steps on mesh (1, 2) (tensor parallel) and on (2, 1)
+                   with ZeRO moments, each held against the one-device
+                   run of the same model in this process: losses within
+                   rtol MESH_LOSS_RTOL and grad norms within
+                   MESH_GNORM_RTOL at every step, no kernel launched.
+                   Prints ms a step and peak GiB by rank.
+ 13. report  — one JSON line of the kernels (with each BCPNN kernel's
                launches on the phase 8 paths, counted at capture, and on
                the sharded paths of phase 9 under ``launches_by_path``;
                flash's launches are the LM serving runs' of phases 7 and
                10, by model under ``launches_by_path``, beside phase
-               11b's training run, which launches none, and its numbers at
-               every phase 6 shape under ``by_shape``), then the last line
-               {"ok": true, "device": {...}}.
+               11b's and 12's training runs, which launch none, and its
+               numbers at every phase 6 shape under ``by_shape``), then
+               the last line {"ok": true, "device": {...}}.
 
 It imports the port only (never JAX or the JAX package) and exits non-zero
 without printing a result where no CUDA device is present.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -3060,6 +3080,8 @@ def phase_train(dev, smi):
           f"{json.dumps(counts)}")
     print(f"train losses: {[round(x, 4) for x in losses]}")
     print(f"train grad norms: {[round(x, 3) for x in gnorms]}")
+    summary = dict(losses=losses, ms=med, tokens_per_s=tokens / med * 1e3,
+                   peak=peak)
     rows = train_rows(prof["p"])
     total = sum(rows.values())
     if not total:
@@ -3111,7 +3133,176 @@ def phase_train(dev, smi):
           f"{sum(same)} of {len(same)} steps (max |diff| "
           f"{max(abs(a - b) for a, b in zip(resumed, losses)):.3g}, steps "
           f"{TRAIN_STOP}-{TRAIN_STEPS - 1} after the restore)")
-    return counts["flash_attention"]
+    return counts["flash_attention"], summary
+
+
+# ---------------------------------------------------------------------------
+# phase 12: LM training through the mesh
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 5                        # 12a: 11b's first steps, bit for bit
+MESH_RANK_STEPS = 3                   # 12b: steps on each mesh
+MESH_RANKS = 2                        # 12b: gloo ranks on the one card
+# 12b: depth, cut from 28 for time, not memory: at 28 layers both meshes
+# fit (18.7 and 28.1 GiB a rank) but gloo stages every collective through
+# the host, 52-58 s a TP step and 14-16 s a ZeRO step, 230 s in all (an
+# NVIDIA H100 80GB HBM3 at 700 W, torch 2.11)
+MESH_LAYERS = 4
+# 12b against the one-device run of the same model, relative, each step:
+# bf16 compute rounds each matmul output to 8 bits of mantissa (2^-9 =
+# 2e-3); a sharded matmul sums its halves in another order, so outputs
+# differ by about an ulp here and there, and the loss (a mean of 8192
+# tokens) by far less; grad norms (one step's gradients, before any
+# averaging over steps) move more
+MESH_LOSS_RTOL = 5e-3
+MESH_GNORM_RTOL = 5e-2
+
+
+def mesh_rank(rank, world, cfg, steps):
+    """12b on one gloo rank (cuda:0 for both): `launch.train.train` on a
+    (1, 2) mesh (tensor parallel), then on a (2, 1) mesh with ZeRO
+    moments; each run's losses, grad norms, ms a step and peak GiB."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    out = {}
+    for tag, shape, zero in (("tp", (1, 2), False), ("zero", (2, 1), True)):
+        mesh = make_host_mesh(shape)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        got = []
+        t0 = time.perf_counter()
+        _, losses = train(TRAIN_ARCH, steps, TRAIN_BATCH, TRAIN_SEQ,
+                          cfg=cfg, lr=TRAIN_LR, mesh=mesh, zero=zero,
+                          log_every=1000,
+                          on_step=lambda st, m, sec: got.append(
+                              (m["grad_norm"], sec)))
+        out[tag] = dict(losses=losses, gnorms=[g for g, _ in got],
+                        ms=[sec * 1e3 for _, sec in got],
+                        wall=time.perf_counter() - t0,
+                        peak=torch.cuda.max_memory_allocated() / 2**30,
+                        launches=read_launches())
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_mesh(smi, ref):
+    """12a and 12b: `launch.train.train(mesh=...)` on the card. ``ref`` is
+    phase 11b's summary (losses, ms a step, tokens/s, peak GiB)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.ranks import spawn_ranks
+    from repro_torch.launch.train import train
+    torch.cuda.empty_cache()
+    held = allocated_gib()
+    print(f"train mesh: {held:.3f} GiB allocated at the start of the phase")
+    t_phase = time.perf_counter()
+
+    # 12a: a 1-rank NCCL group, the default host mesh (1, 1)
+    base = ROOT / "build"
+    base.mkdir(exist_ok=True)
+    steps = []
+    with tempfile.TemporaryDirectory(dir=base, prefix="mesh_") as tmp:
+        dev = torch.device("cuda", 0)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = make_host_mesh()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            model, losses = train(
+                TRAIN_ARCH, MESH_STEPS, TRAIN_BATCH, TRAIN_SEQ, smoke=False,
+                lr=TRAIN_LR, mesh=mesh, log_every=1000,
+                on_step=lambda st, m, sec: steps.append(sec))
+            wall = time.perf_counter() - t0
+            counts = read_launches()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            placed = {str(p.placements) for p in model.parameters()}
+            del model
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    if any(counts.values()):
+        fail(f"12a: kernels launched {json.dumps(counts)}, expected none")
+    want = ref["losses"][:MESH_STEPS]
+    same = [a == b for a, b in zip(losses, want)]
+    if not all(same) or len(losses) != MESH_STEPS:
+        fail(f"12a: losses {losses} are not 11b's first {MESH_STEPS}, "
+             f"{want}")
+    ms = [s * 1e3 for s in steps[1:]]
+    med = statistics.median(ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"12a [{smi}]: {TRAIN_ARCH} at full width through "
+          f"train(mesh=make_host_mesh()) on a 1-rank NCCL group, mesh (1, 1) "
+          f"('data', 'model'), parameters DTensors ({sorted(placed)}): "
+          f"{MESH_STEPS} steps in {wall:.2f} s, losses bit for bit 11b's "
+          f"first {MESH_STEPS} ({[round(x, 4) for x in losses]}); ms a step "
+          f"median {med:.2f} over steps 1-{MESH_STEPS - 1} (first "
+          f"{steps[0] * 1e3:.1f}) against 11b's {ref['ms']:.2f}: "
+          f"{med - ref['ms']:+.2f} ms of DTensor dispatch; "
+          f"{tokens / med * 1e3:.0f} tokens/s against "
+          f"{ref['tokens_per_s']:.0f}; peak {peak:.2f} GiB against "
+          f"{ref['peak']:.2f}; launches {json.dumps(counts)}")
+
+    # 12b: two gloo ranks on the card against the one-device run
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=MESH_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    got1 = []
+    t0 = time.perf_counter()
+    _, one = train(TRAIN_ARCH, MESH_RANK_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                   cfg=cfg, lr=TRAIN_LR, log_every=1000,
+                   on_step=lambda st, m, sec: got1.append(m["grad_norm"]))
+    one_s = time.perf_counter() - t0
+    one_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = spawn_ranks(mesh_rank, MESH_RANKS, backend="gloo",
+                      args=(cfg, MESH_RANK_STEPS), timeout_s=600)
+    spawn_s = time.perf_counter() - t0
+    for tag in ("tp", "zero"):
+        runs = [res[r][tag] for r in range(MESH_RANKS)]
+        for r, x in enumerate(runs):
+            if any(x["launches"].values()):
+                fail(f"12b {tag} rank {r}: kernels launched "
+                     f"{json.dumps(x['launches'])}")
+            loss_gap = max(abs(a - b) / abs(b)
+                           for a, b in zip(x["losses"], one))
+            gn_gap = max(abs(a - b) / abs(b)
+                         for a, b in zip(x["gnorms"], got1))
+            if len(x["losses"]) != MESH_RANK_STEPS or \
+                    not np.isfinite(x["losses"]).all() or \
+                    loss_gap > MESH_LOSS_RTOL or gn_gap > MESH_GNORM_RTOL:
+                fail(f"12b {tag} rank {r}: losses {x['losses']}, grad "
+                     f"norms {x['gnorms']} against the one-device "
+                     f"{one}, {got1}")
+        x = runs[0]
+        print(f"12b {tag} [{smi}]: {TRAIN_ARCH} at published widths, "
+              f"{MESH_LAYERS} layers, mesh "
+              f"{'(1, 2) tensor parallel' if tag == 'tp' else '(2, 1), ZeRO moments'}"
+              f" on {MESH_RANKS} gloo ranks sharing the card: losses "
+              f"{[round(v, 5) for v in x['losses']]} against one device's "
+              f"{[round(v, 5) for v in one]} (largest relative gap "
+              f"{max(abs(a - b) / abs(b) for a, b in zip(x['losses'], one)):.2e}"
+              f", bound {MESH_LOSS_RTOL}), grad norms "
+              f"{[round(v, 4) for v in x['gnorms']]} against "
+              f"{[round(v, 4) for v in got1]} (bound {MESH_GNORM_RTOL}); ms a "
+              f"step by rank {[[round(v, 1) for v in y['ms']] for y in runs]}"
+              f" (two processes time-slicing one card over gloo, not "
+              f"scaling); peak GiB by rank "
+              f"{[round(y['peak'], 2) for y in runs]} (one device "
+              f"{one_peak:.2f}); launches {json.dumps(x['launches'])}")
+    print(f"12b: one-device reference {one_s:.1f} s, the spawn and both "
+          f"meshes {spawn_s:.1f} s; phase 12 {time.perf_counter() - t_phase:.1f}"
+          f" s")
+    return {"12a": counts["flash_attention"],
+            "12b": sum(res[r][t]["launches"]["flash_attention"]
+                       for r in range(MESH_RANKS) for t in ("tp", "zero"))}
 
 
 def main():
@@ -3170,8 +3361,16 @@ def main():
     by_path.update(phase_families(dev, smi))
     done("families")
     phase_train_fixture(dev)
-    by_path[f"{TRAIN_ARCH} train"] = phase_train(dev, smi)
+    by_path[f"{TRAIN_ARCH} train"], train_ref = phase_train(dev, smi)
     done("train")
+    mesh_counts = phase_train_mesh(smi, train_ref)
+    for tag, n in mesh_counts.items():
+        by_path[f"{TRAIN_ARCH} train mesh {tag}"] = n
+    for entry in report:
+        if entry["name"] in BCPNN_KERNELS:
+            entry.setdefault("launches_by_path", {}).update(
+                {f"train mesh {tag}": 0 for tag in mesh_counts})
+    done("train mesh")
     flash["launches"] = sum(by_path.values())
     flash["launches_by_path"] = by_path
     report.append(flash)
@@ -3180,7 +3379,7 @@ def main():
           "scaled_dot_product_attention (enable_gqa) at the qwen2-1.5b bf16 "
           "shape (by_shape: at each shape without softcap or window); its "
           "launches are the LM serving runs' of phases 7 and 10; training "
-          "(phase 11b) launches none of the six kernels")
+          "(phases 11b and 12) launches none of the six kernels")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,12 @@ so that each package restores the other's checkpoints.
     tensor on its device and in its dtype (an exact widening only, such
     as the key's uint32 to int64); any other template leaf gets the
     numpy array.
+  * Sharded leaves (DTensors, an LM mesh): every rank of the mesh calls
+    `save` / `save_async` (the leaves are gathered to their full tensors,
+    a collective), and the mesh's first rank alone writes, once per
+    checkpoint: the files hold the JAX tree, whatever the mesh. A DTensor
+    template leaf is restored into its placements, each rank keeping its
+    shard of the full leaf.
 """
 from __future__ import annotations
 
@@ -86,6 +92,23 @@ def _unflatten(template, leaves):
             return type(template)(*vals)
         return type(template)(vals)
     return next(leaves)
+
+
+def _full(leaves):
+    """The leaves with each DTensor gathered to its full tensor (a
+    collective: every rank of its mesh calls this in the same order), and
+    whether this rank writes them: the first rank of the mesh does, and
+    every rank does where no leaf is sharded."""
+    from torch.distributed.tensor import DTensor
+    writes = True
+    out = []
+    for v in leaves:
+        if isinstance(v, DTensor):
+            writes = writes and (torch.distributed.get_rank()
+                                 == int(v.device_mesh.mesh.flatten()[0]))
+            v = v.full_tensor()
+        out.append(v)
+    return out, writes
 
 
 def _host(leaf) -> np.ndarray:
@@ -174,6 +197,9 @@ def save(ckpt_dir: str, step: int, tree, keep_last: int = 3,
     reserved keys (step, n_leaves, checksums, treedef, time) win over
     it."""
     leaves, treedef = _flatten(tree)
+    leaves, writes = _full(leaves)
+    if not writes:
+        return os.path.join(ckpt_dir, f"step_{step}")
     return _write(ckpt_dir, step, [_host(v) for v in leaves], treedef,
                   keep_last, extra_meta)
 
@@ -212,6 +238,9 @@ class AsyncCheckpointer:
         checkpoint in flight."""
         self.wait()
         leaves, treedef = _flatten(tree)
+        leaves, writes = _full(leaves)
+        if not writes:
+            return
         host = [_snapshot(v) for v in leaves]
         self._thread = threading.Thread(
             target=self._write, args=(step, host, treedef),
@@ -275,8 +304,8 @@ def manifest(ckpt_dir: str, step: int) -> dict | None:
 
 def _place(i: int, arr: np.ndarray, tmpl):
     """Leaf i as the template wants it: a tensor template gets a tensor on
-    its device and in its dtype (an exact widening only); any other gets
-    the numpy array."""
+    its device and in its dtype (an exact widening only), a DTensor
+    template its placements; any other gets the numpy array."""
     if not torch.is_tensor(tmpl):
         return arr
     want = torch.empty((), dtype=tmpl.dtype).numpy().dtype
@@ -287,6 +316,11 @@ def _place(i: int, arr: np.ndarray, tmpl):
         arr = arr.astype(want)
     if not arr.flags.c_contiguous:
         arr = arr.copy()
+    from torch.distributed.tensor import DTensor
+    if isinstance(tmpl, DTensor):
+        from repro_torch.models.sharding import shard_tensor
+        return shard_tensor(torch.from_numpy(arr), tmpl.device_mesh,
+                            tmpl.placements)
     return torch.from_numpy(arr).to(tmpl.device)
 
 

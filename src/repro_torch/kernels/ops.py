@@ -123,7 +123,14 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
     strided view with a contiguous last dim, so a KV cache (B, max_len, Kv,
     hd) goes in as it lies, with ``kv_len`` (a Python int, default Skv)
     bounding its valid keys; Sq and Skv multiples of 128. The JAX-shaped
-    call, (BH, S, hd) tensors, is the case H = Kv = 1."""
+    call, (BH, S, hd) tensors, is the case H = Kv = 1. A DTensor (a
+    sharded prefill, which is not ported) raises: neither the kernel nor its
+    plain version takes one."""
+    from torch.distributed.tensor import DTensor
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if isinstance(t, DTensor):
+            raise TypeError(f"flash_attention: {name} is a DTensor; the "
+                            "kernel takes the local tensors of one rank")
     fn = _dispatch(FA.flash_attention_plain, FA.flash_attention_kernel,
                    q.device)
     return fn(q, k, v, scale=scale, causal=causal, window=window,

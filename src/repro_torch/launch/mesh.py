@@ -1,5 +1,5 @@
-"""Meshes of the port's sharded BCPNN runtime (the BCPNN half of
-`repro.launch.mesh`).
+"""Meshes of the port (the port of `repro.launch.mesh`): the sharded BCPNN
+runtime's HCU mesh and the LM substrate's (data, model) meshes.
 
 The JAX package shards whole HCUs over a 1-D ``jax.sharding.Mesh`` with
 one axis, "hcu". The port runs one process per rank of a
@@ -8,12 +8,18 @@ one axis, "hcu". The port runs one process per rank of a
 and the device the rank's tensors live on. Several ranks may share one
 card (gloo; NCCL refuses two ranks on one GPU).
 
+The LM substrate's meshes (`make_host_mesh`, `make_production_mesh`) are
+`torch.distributed.device_mesh.DeviceMesh`es over the default group's
+ranks, with the JAX package's axis names; the LM sharding lays tensors on
+them as DTensors (`launch.shardings`, `models.sharding`). A mesh of gloo
+ranks on CUDA (several ranks on one card) routes DTensor's all-gathers
+through gloo's list all-gather (`_repair_gloo_cuda_all_gather`).
+
 Nothing here touches a process group while the module is imported.
-`make_production_mesh` and `make_host_mesh` build the LM substrate's
-(data, model) meshes, which wait for ROADMAP queue A item 8c, and raise.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -105,15 +111,68 @@ def make_elastic_mesh(n_hcu: int, ranks=None, *, group=None,
                         device)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The LM substrate's (data, model) mesh: not ported yet (ROADMAP queue
-    A item 8c)."""
-    raise NotImplementedError("make_production_mesh: the LM sharding is not "
-                              "ported to PyTorch yet (ROADMAP queue A item 8c)")
+_GLOO_CUDA_GATHER: list = []     # the library that holds the repair
 
 
-def make_host_mesh(shape=None, axes=("data", "model")):
-    """The LM substrate's small test mesh: not ported yet (ROADMAP queue A
-    item 8c)."""
-    raise NotImplementedError("make_host_mesh: the LM sharding is not "
-                              "ported to PyTorch yet (ROADMAP queue A item 8c)")
+def _gloo_cuda_all_gather(input, group_size, group_name):
+    """`_c10d_functional.all_gather_into_tensor` for CUDA tensors: through
+    gloo's list all-gather where the group is gloo's (its flat
+    `_allgather_base` on CUDA tensors ends the process with SIGSEGV in
+    torch 2.11: tools/gloo_cuda_probe.py), else the group's own
+    all-gather into one tensor."""
+    pg = group_name if isinstance(group_name, dist.ProcessGroup) else \
+        torch._C._distributed_c10d._resolve_process_group(group_name)
+    src = input.contiguous()
+    if dist.get_backend(pg) != "gloo":
+        out = src.new_empty((group_size * src.shape[0],) + src.shape[1:])
+        dist.all_gather_into_tensor(out, src, group=pg)
+        return out
+    parts = [torch.empty_like(src) for _ in range(group_size)]
+    dist.all_gather(parts, src, group=pg)
+    return torch.cat(parts)
+
+
+def _repair_gloo_cuda_all_gather():
+    """Route DTensor's all-gathers of CUDA tensors around gloo's crashing
+    flat all-gather (`_gloo_cuda_all_gather`), once a process: what an LM
+    mesh of gloo ranks on a card (several ranks sharing it) needs."""
+    if not _GLOO_CUDA_GATHER:
+        lib = torch.library.Library("_c10d_functional", "IMPL")
+        lib.impl("all_gather_into_tensor", _gloo_cuda_all_gather, "CUDA")
+        _GLOO_CUDA_GATHER.append(lib)
+
+
+def _lm_mesh(shape, axes, device) -> "DeviceMesh":
+    from torch.distributed.device_mesh import DeviceMesh
+    n = math.prod(shape)
+    world = dist.get_world_size()
+    if world < n:
+        raise ValueError(f"a {tuple(shape)} mesh needs {n} ranks, the "
+                         f"process group has {world}")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dist.get_backend() == "gloo":
+        _repair_gloo_cuda_all_gather()
+    ranks = torch.arange(n, dtype=torch.int64).reshape(tuple(shape))
+    return DeviceMesh(dev.type, ranks, mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """Single pod: (16, 16) = 256 ranks, axes (data, model).
+    Multi-pod:  (2, 16, 16) = 512 ranks, axes (pod, data, model).
+    A DeviceMesh over the first ranks of the default process group (every
+    rank calls it); raises, naming the ranks it needs, where the group is
+    smaller. The shapes are the JAX package's TPU pods; the spec functions
+    read them without ranks through `sharding.MeshAxes`."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _lm_mesh(shape, axes, device)
+
+
+def make_host_mesh(shape=None, axes=("data", "model"), device=None):
+    """Small mesh over the ranks of the default process group (tests,
+    examples, one host): a DeviceMesh of ``shape`` (default (world, 1))
+    named ``axes``, on CUDA unless ``device`` says the CPU. Every rank
+    calls it."""
+    if shape is None:
+        shape = (dist.get_world_size(), 1)
+    return _lm_mesh(shape, axes, device)

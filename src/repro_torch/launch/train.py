@@ -3,12 +3,19 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --steps 200 --batch 8 --seq 128 [--no-smoke] [--device cpu]
 
-The production loop on one device: synthetic Markov LM data, the train
-step (autograd, remat, AdamW), async checkpointing, straggler monitoring
-and restart from the newest checkpoint. It runs on CUDA unless the caller
-asks for the CPU. As in the JAX package, ``--smoke`` is on by default and
-``--no-smoke`` takes the published config. The LM meshes are not ported
-yet: a ``mesh`` raises.
+The production loop: synthetic Markov LM data, the train step (autograd,
+remat, AdamW), async checkpointing, straggler monitoring and restart from
+the newest checkpoint. It runs on CUDA unless the caller asks for the
+CPU. As in the JAX package, ``--smoke`` is on by default and
+``--no-smoke`` takes the published config.
+
+With ``mesh`` (a DeviceMesh, `launch.mesh.make_host_mesh`; every rank of
+it calls `train`) the parameters are DTensors placed by
+`shardings.param_specs`, the moments by `shardings.opt_specs` (ZeRO over
+"data" with ``zero=True``) and each batch by `shardings.batch_specs`, all
+under `use_rules(DEFAULT_RULES, mesh)`, as the JAX launcher lays them out.
+Every rank draws the same parameters and batches from ``seed`` and keeps
+its shard. The device is the mesh's.
 
 Checkpoints hold ``(params, opt_state)`` as the JAX package's tree
 (`state_tree`): the parameter tree with each pattern position's layers
@@ -20,16 +27,23 @@ make: their forward raises here, as the JAX launcher's fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 from repro_torch import convert
 from repro_torch.checkpoint import AsyncCheckpointer, restore_latest
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.device import resolve_device
 from repro_torch.data import MarkovLM
+from repro_torch.launch import shardings as SH
+from repro_torch.models.sharding import (DEFAULT_RULES, mesh_device,
+                                         placements, shard_tensor, use_rules)
 from repro_torch.models.transformer import Model
 from repro_torch.runtime import StragglerMonitor
 from repro_torch.train import AdamW, AdamWState, make_train_step, model_params
@@ -55,38 +69,85 @@ def state_template(params, cfg):
 
 def load_state(tree, params, opt_state: AdamWState, cfg) -> AdamWState:
     """Copy a restored `state_tree` into ``params`` and ``opt_state`` in
-    place; returns the optimizer state with the restored step."""
+    place (a DTensor takes its shard of the full leaf); returns the
+    optimizer state with the restored step."""
     p_tree, st = tree
     with torch.no_grad():
         for dst, src in ((params, p_tree), (opt_state.mu, st.mu),
                          (opt_state.nu, st.nu)):
             for n, t in convert.lm_tree_leaves(src, cfg, dst).items():
-                dst[n].copy_(torch.as_tensor(t))
+                d = dst[n]
+                t = torch.as_tensor(t)
+                if isinstance(d, DTensor):
+                    d, t = d.to_local(), shard_tensor(
+                        t, d.device_mesh, d.placements).to_local()
+                d.copy_(t)
     step = torch.as_tensor(st.step, dtype=torch.int32).to(
         opt_state.step.device)
     return AdamWState(step, opt_state.mu, opt_state.nu)
 
 
+def shard_state(model: Model, opt: AdamW, mesh, *, zero: bool = False):
+    """Place ``model`` on ``mesh`` for training, as the JAX launcher does:
+    its parameters become DTensors by `shardings.param_specs` (each rank
+    keeps its shard of the tensor it holds, the same on every rank), and
+    fresh moments are laid out by `shardings.opt_specs`. Returns (params,
+    opt_state, place_batch), ``place_batch`` laying a batch (the same on
+    every rank) out by `shardings.batch_specs`."""
+    cfg = model.cfg
+    p_specs = SH.shard_params(model, cfg, mesh)
+    params = model_params(model)
+    o_specs = SH.opt_specs(p_specs, zero=zero, mesh=mesh,
+                           params=SH.shape_tree(params, cfg))
+    opt_state = opt.init(params, {
+        n: placements(s, mesh)
+        for n, s in SH.layer_specs(o_specs.mu, cfg, params).items()})
+
+    def place_batch(b):
+        specs = SH.batch_specs(b, mesh)
+        return {k: shard_tensor(v, mesh, placements(specs[k], mesh))
+                for k, v in b.items()}
+    return params, opt_state, place_batch
+
+
 def train(arch: str, steps: int, batch: int, seq: int, smoke: bool = True,
           ckpt_dir: str | None = None, lr: float = 3e-3, log_every: int = 10,
-          mesh=None, seed: int = 0, device=None, on_step=None):
+          mesh=None, seed: int = 0, device=None, on_step=None,
+          zero: bool = False, cfg=None):
     """Train ``arch`` for ``steps`` steps (from the newest checkpoint in
     ``ckpt_dir``, if any); returns (model, losses of the steps run).
     ``on_step(step, metrics, seconds)``, if given, sees each step's
     metrics as host floats and its seconds, from the call to the host
-    read of its loss."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "train: the LM meshes are not ported to PyTorch yet (ROADMAP "
-            "queue A item 8c); the port trains on one device")
-    device = resolve_device(device)
-    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    read of its loss. ``mesh``: a DeviceMesh to train on (``device`` is
+    then the mesh's); ``zero`` ZeRO-shards the moments over "data".
+    ``cfg`` overrides the config ``arch`` and ``smoke`` name (a cut depth)."""
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError("train: mesh must be a DeviceMesh "
+                        f"(launch.mesh.make_host_mesh), got {type(mesh)}")
+    if cfg is None:
+        cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    device = resolve_device(device) if mesh is None else mesh_device(mesh)
+    with contextlib.ExitStack() as stack:
+        if mesh is not None:
+            stack.enter_context(use_rules(DEFAULT_RULES, mesh))
+        return _train(cfg, steps, batch, seq, ckpt_dir, lr, log_every, mesh,
+                      seed, device, on_step, zero)
+
+
+def _train(cfg, steps, batch, seq, ckpt_dir, lr, log_every, mesh, seed,
+           device, on_step, zero):
     model = Model(cfg, device=device, seed=seed)
     opt = AdamW(lr=lr, warmup_steps=20)
     data = MarkovLM(vocab=cfg.vocab, seed=seed)
-    params = model_params(model)
-    opt_state = opt.init(params)
+    if mesh is None:
+        params = model_params(model)
+        opt_state = opt.init(params)
+        place_batch = lambda b: b
+    else:
+        params, opt_state, place_batch = shard_state(model, opt, mesh,
+                                                     zero=zero)
     step_fn = make_train_step(model, opt)
+    talk = mesh is None or dist.get_rank() == 0     # one log per run
 
     start = 0
     ckpt = None
@@ -97,12 +158,13 @@ def train(arch: str, steps: int, batch: int, seq: int, smoke: bool = True,
             opt_state = load_state(restored, params, opt_state, cfg)
             del restored
             start = s
-            print(f"[restore] resumed from step {s}")
+            if talk:
+                print(f"[restore] resumed from step {s}")
 
     mon = StragglerMonitor(deadline_s=30.0)
     losses = []
     for step in range(start, steps):
-        b = data.batch(step, batch, seq, device=device)
+        b = place_batch(data.batch(step, batch, seq, device=device))
         mon.start()
         t0 = time.perf_counter()
         params, opt_state, metrics = step_fn(params, opt_state, b)
@@ -111,7 +173,7 @@ def train(arch: str, steps: int, batch: int, seq: int, smoke: bool = True,
         mon.finish()
         if on_step is not None:
             on_step(step, {k: float(v) for k, v in metrics.items()}, seconds)
-        if step % log_every == 0 or step == steps - 1:
+        if talk and (step % log_every == 0 or step == steps - 1):
             print(f"step {step:5d} loss {losses[-1]:.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"lr {float(metrics['lr']):.2e}", flush=True)
@@ -120,7 +182,10 @@ def train(arch: str, steps: int, batch: int, seq: int, smoke: bool = True,
     if ckpt:
         ckpt.save_async(steps, state_tree(params, opt_state, cfg))
         ckpt.wait()
-    print(f"[straggler] {mon.summary()}")
+        if mesh is not None:
+            dist.barrier()       # the first rank's files are complete
+    if talk:
+        print(f"[straggler] {mon.summary()}")
     return model, losses
 
 

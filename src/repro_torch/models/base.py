@@ -73,8 +73,9 @@ class ArchConfig:
     compute_dtype: str = "bfloat16"
 
     # substrate behaviour: remat recomputes each block in the backward
-    # (`Model._block`); scan_layers, seq_parallel_residual and
-    # moe_shard_cap are kept as data (the port has no scan and no mesh)
+    # (`Model._block`); seq_parallel_residual and moe_shard_cap lay out
+    # activations under a mesh (`models.sharding`); scan_layers is kept as
+    # data (the port has no scan)
     remat: bool = True
     scan_layers: bool = True
     attn_impl: str = "dense"                # dense | chunked | pallas_flash

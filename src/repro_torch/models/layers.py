@@ -6,8 +6,10 @@ Functions take their parameters as a mapping of tensors (an
 JAX package's layouts: activations (B, S, D), heads (B, S, H, hd), caches
 (B, max_len, Kv, hd). Parameters are float32 and are cast to
 ``cfg.cdtype`` at every matmul; logits, softmax and PV run in float32.
-The JAX package's sharding hints are identity without a mesh and are left
-out.
+The JAX package's sharding hints (`models.sharding.hint`) stand where it
+has them: the identity without a mesh, a DTensor redistribution under
+one. The flash kernel takes plain tensors only: a DTensor that reaches
+it raises (`kernels.ops.flash_attention`).
 
 Attention covers, through arguments: GQA with any kv-head count, QKV bias
 (qwen2), logit softcap (gemma2), sliding windows (gemma2's local layers),
@@ -28,6 +30,8 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models.base import ArchConfig, dense_init
+from repro_torch.models.sharding import (hint, is_sharded, local_attention,
+                                         mapped_size, replicate)
 
 NEG_INF = -1e30
 
@@ -170,7 +174,13 @@ def attend(params, x, cfg: ArchConfig, *, positions, kv=None,
     G = H // Kv
     cd = cfg.cdtype
 
-    src = x if kv is None else kv
+    # the projections take their input whole over "model": the residual
+    # is sharded over "model_d" (the hint on each block's output), and
+    # torch 2.11's DTensor would contract over that shard and leave q
+    # Partial, which its add of a sharded bias then refuses
+    x = hint(x, "batch", None, None)
+    src = x if kv is None else hint(kv, "batch", None, None)
+    Skv = src.shape[1]
     q = x @ params["wq"].to(cd)
     k = src @ params["wk"].to(cd)
     v = src @ params["wv"].to(cd)
@@ -178,9 +188,22 @@ def attend(params, x, cfg: ArchConfig, *, positions, kv=None,
         q = q + params["bq"].to(cd)
         k = k + params["bk"].to(cd)
         v = v + params["bv"].to(cd)
-    q = q.reshape(B, Sq, H, hd)
-    k = k.reshape(B, src.shape[1], Kv, hd)
-    v = v.reshape(B, src.shape[1], Kv, hd)
+    # TP shards heads when they divide the model axis; otherwise fall back
+    # to sequence-parallel attention (queries sharded over "model") instead
+    # of silently replicating the O(S^2) work on every TP rank. The JAX
+    # package hints q and k after RoPE; a DTensor cannot split a sharded
+    # (H * hd) dim into heads that do not divide the axis, so the same
+    # layouts are set here before the split (v takes k's), and RoPE keeps
+    # them.
+    tp = mapped_size("heads")
+    seq_mp = tp > 1 and H % tp != 0 and Sq > 1
+    q_axes = ("batch", "seq_mp", None, None) if seq_mp else \
+        ("batch", None, "heads", None)
+    q = hint(q, *q_axes, shape=(B, Sq, H, hd)).reshape(B, Sq, H, hd)
+    k = hint(k, "batch", None, "heads", None,
+             shape=(B, Skv, Kv, hd)).reshape(B, Skv, Kv, hd)
+    v = hint(v, "batch", None, "heads", None,
+             shape=(B, Skv, Kv, hd)).reshape(B, Skv, Kv, hd)
     if kv is None:   # RoPE only for self-attention
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
         k = apply_rope(k, positions if kv_positions is None else kv_positions,
@@ -198,7 +221,14 @@ def attend(params, x, cfg: ArchConfig, *, positions, kv=None,
 
     Skv = k.shape[1]
     scale = cfg.query_scale if cfg.query_scale else hd ** -0.5
-    qg = q.reshape(B, Sq, Kv, G, hd)
+    if is_sharded(q, 2) and not is_sharded(k, 2):
+        # heads sharded, kv heads too few to follow: each rank attends its
+        # query heads against their kv heads, repeated to one per head
+        k, v = (torch.repeat_interleave(t, G, dim=2) for t in (k, v))
+        k, v = (hint(t, "batch", None, "heads", None) for t in (k, v))
+        qg = q.reshape(B, Sq, H, 1, hd)
+    else:
+        qg = q.reshape(B, Sq, Kv, G, hd)
     use_flash = (cfg.attn_impl == "pallas_flash" and Sq > 1 and kv is None
                  and causal and Sq % 128 == 0 and Skv % 128 == 0
                  and pad is None)   # the flash path has no per-row pad mask
@@ -210,12 +240,13 @@ def attend(params, x, cfg: ArchConfig, *, positions, kv=None,
                      pad, sliding_window, kv_positions, causal)
         if cfg.attn_impl in ("chunked", "pallas_flash") and Sq > 1 \
                 and Skv > cfg.attn_chunk:
-            out = _sdpa_chunked(qg, k, v, mask, cfg.attn_softcap, scale,
-                                cfg.attn_chunk)
+            out = local_attention(_sdpa_chunked, qg, k, v, mask,
+                                  cfg.attn_softcap, scale, cfg.attn_chunk)
         else:
-            out = _sdpa(qg, k, v, mask, cfg.attn_softcap, scale)
+            out = local_attention(_sdpa, qg, k, v, mask, cfg.attn_softcap,
+                                  scale)
     out = out.reshape(B, Sq, H * hd) @ params["wo"].to(cd)
-    return out, cache
+    return hint(out, "batch", None, "model_d"), cache
 
 
 def _mask(positions, Skv, device, cache, pad, sliding_window,
@@ -240,7 +271,7 @@ def _mask(positions, Skv, device, cache, pad, sliding_window,
         mask = valid[:, None, :].expand(valid.shape[0], Sq, Skv)
     if sliding_window:
         mask = mask & (q_pos[:, :, None] - kv_pos[:, None, :] < sliding_window)
-    return mask
+    return replicate(mask)
 
 
 def init_mlp(cfg: ArchConfig, generator, device, d_ff=None, d_model=None):
@@ -256,6 +287,8 @@ def mlp(params, x, cfg: ArchConfig):
     """Gated MLP: act(x wg) * (x wi) wo; gelu is the tanh approximation
     (`jax.nn.gelu`'s default)."""
     cd = cfg.cdtype
+    x = hint(x, "batch", None, None)     # as `attend`'s input
     g = x @ params["wg"].to(cd)
     g = F.silu(g) if cfg.act == "silu" else F.gelu(g, approximate="tanh")
-    return (g * (x @ params["wi"].to(cd))) @ params["wo"].to(cd)
+    h = hint(g * (x @ params["wi"].to(cd)), "batch", None, "model_d")
+    return h @ params["wo"].to(cd)

@@ -9,7 +9,8 @@ weights. The router and its softmax run in float32, whatever the compute
 dtype. `moe_ffn` returns ``(out, {"lb_loss", "drop_frac"})``: the
 switch-style load-balance loss and the fraction of (token, expert) picks
 dropped past capacity. No Pallas kernel runs here in the JAX package, and
-none runs here.
+none runs here. Under a mesh the experts are sharded over "expert"
+(`_moe_ffn_mesh`).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.base import ArchConfig, ParamTree, dense_init
+from repro_torch.models.sharding import active_mesh, hint
 
 
 def _rank_within_sorted_key(keys, order):
@@ -71,16 +73,12 @@ def _act(cfg: ArchConfig):
         lambda t: F.gelu(t, approximate="tanh"))
 
 
-def moe_ffn(params, x, cfg: ArchConfig):
-    """x (B, S, D) -> (out (B, S, D) in the compute dtype, aux dict)."""
-    B, S, D = x.shape
+def _dispatch(xt, top_e, cfg: ArchConfig):
+    """Capacity dispatch of the tokens xt (T, D): stable sort by expert,
+    rank within the expert. Returns (buf (E, cap, D) in the compute dtype,
+    slot (M,) of each (token, pick) with E * cap for a drop, ok (M,))."""
+    T, D = xt.shape
     E, K = cfg.n_experts, cfg.top_k
-    T = B * S
-    cd = cfg.cdtype
-    xt = x.reshape(T, D)
-    probs, top_w, top_e = route(params, xt, cfg)
-
-    # capacity dispatch: stable sort by expert, rank within the expert
     M = T * K
     flat_e = top_e.reshape(M)
     cap = capacity(cfg, T)
@@ -88,30 +86,85 @@ def moe_ffn(params, x, cfg: ArchConfig):
     rank = _rank_within_sorted_key(flat_e, order)
     ok = rank < cap
     slot = torch.where(ok, flat_e * cap + rank, E * cap)    # E*cap: dropped
-    tok = torch.arange(M, device=x.device) // K
-    buf = torch.zeros((E * cap + 1, D), dtype=cd, device=x.device)
-    buf[slot] = xt.to(cd)[tok]
-    buf = buf[:E * cap].reshape(E, cap, D)
+    tok = torch.arange(M, device=xt.device) // K
+    buf = torch.zeros((E * cap + 1, D), dtype=cfg.cdtype, device=xt.device)
+    buf[slot] = xt.to(cfg.cdtype)[tok]
+    return buf[:E * cap].reshape(E, cap, D), slot, ok
 
-    # the experts, batched
+
+def _experts(params, buf, cfg: ArchConfig):
+    """The experts, batched: (E, cap, D) -> (E, cap, D)."""
+    cd = cfg.cdtype
     act = _act(cfg)
     h = act(torch.bmm(buf, params["wg"].to(cd))) \
         * torch.bmm(buf, params["wi"].to(cd))
-    out_e = torch.bmm(h, params["wo"].to(cd)).reshape(E * cap, D)
+    return torch.bmm(h, params["wo"].to(cd))
 
-    # combine
+
+def _combine(params, out_e, xt, slot, ok, top_w, cfg: ArchConfig):
+    """The experts' outputs (E * cap, D) weighted back onto the tokens,
+    plus the shared experts: (T, D) in the compute dtype."""
+    T, D = xt.shape
+    E, K = cfg.n_experts, cfg.top_k
+    cd = cfg.cdtype
+    cap = out_e.shape[0] // E
     gathered = out_e[torch.clamp(slot, max=E * cap - 1)]    # (M, D)
-    w = torch.where(ok, top_w.reshape(M), 0.0).to(cd)
+    w = torch.where(ok, top_w.reshape(T * K), 0.0).to(cd)
     out = (gathered * w[:, None]).reshape(T, K, D).sum(dim=1)
-
     if cfg.n_shared_experts:
         sp = params["shared"]
+        act = _act(cfg)
         xc = xt.to(cd)
         hs = act(xc @ sp["wg"].to(cd)) * (xc @ sp["wi"].to(cd))
         out = out + hs @ sp["wo"].to(cd)
+    return out
 
+
+def _aux(probs, top_e, ok, E: int):
     me = F.one_hot(top_e[:, 0], E).float().mean(dim=0)
     ce = probs.mean(dim=0)
-    aux = {"lb_loss": E * torch.sum(me * ce),
-           "drop_frac": 1.0 - ok.float().mean()}
-    return out.reshape(B, S, D), aux
+    return {"lb_loss": E * torch.sum(me * ce),
+            "drop_frac": 1.0 - ok.float().mean()}
+
+
+def moe_ffn(params, x, cfg: ArchConfig):
+    """x (B, S, D) -> (out (B, S, D) in the compute dtype, aux dict)."""
+    if active_mesh() is not None:
+        return _moe_ffn_mesh(params, x, cfg)
+    B, S, D = x.shape
+    xt = x.reshape(B * S, D)
+    probs, top_w, top_e = route(params, xt, cfg)
+    buf, slot, ok = _dispatch(xt, top_e, cfg)
+    out_e = _experts(params, buf, cfg).reshape(-1, D)
+    out = _combine(params, out_e, xt, slot, ok, top_w, cfg)
+    return out.reshape(B, S, D), _aux(probs, top_e, ok, cfg.n_experts)
+
+
+def _moe_ffn_mesh(params, x, cfg: ArchConfig):
+    """`moe_ffn` under a mesh. The routing, the sorted dispatch and the
+    combine have no DTensor rule and need every token (the capacity is the
+    whole batch's): they run whole on each rank, on the gathered tokens and
+    the gathered router and shared experts. The experts run on DTensors,
+    sharded over "expert" (and the capacity over "batch" with
+    ``moe_shard_cap``), as the JAX package's hints lay them out."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = active_mesh()
+    rep = (Replicate(),) * mesh.ndim
+    whole = lambda t: t.redistribute(mesh, rep).to_local()
+    B, S, D = x.shape
+    xt = whole(x).reshape(B * S, D)
+    local = {"router": whole(params["router"])}
+    if cfg.n_shared_experts:
+        local["shared"] = {k: whole(v) for k, v in params["shared"].items()}
+    probs, top_w, top_e = route(local, xt, cfg)
+    buf, slot, ok = _dispatch(xt, top_e, cfg)
+    cap_ax = "batch" if cfg.moe_shard_cap else None
+    buf = hint(DTensor.from_local(buf, mesh, rep, run_check=False),
+               "expert", cap_ax, None)
+    out_e = hint(_experts(params, buf, cfg), "expert", cap_ax, None)
+    out = _combine(local, whole(out_e).reshape(-1, D), xt, slot, ok, top_w,
+                   cfg)
+    out = DTensor.from_local(out.reshape(B, S, D), mesh, rep, run_check=False)
+    aux = {k: DTensor.from_local(v, mesh, rep, run_check=False)
+           for k, v in _aux(probs, top_e, ok, cfg.n_experts).items()}
+    return out.redistribute(mesh, x.placements), aux

@@ -17,16 +17,24 @@ the CPU's tolerance). ``a_log``, ``d_skip``, ``dt_bias``, ``wif``,
 ``if_bias`` and the sLSTM ``b`` are float32 whatever ``param_dtype`` is,
 as in the JAX package.
 
+Under a mesh the ``*_seq`` mixers run on each rank's rows of the batch,
+on plain tensors with their parameters gathered (`_rows_under_mesh`):
+DTensor has no rule for their chunked scans and loops. The Mamba2 output
+then takes the JAX package's hint.
+
 `softplus` and `log_sigmoid` are JAX's (``logaddexp(x, 0)`` and its
 negation at -x), not torch's thresholded softplus.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.base import ArchConfig, dense_init
+from repro_torch.models.sharding import active_mesh, hint, local_region
 
 CHUNK = 128
 HEAD_DIM = 64                 # Mamba2's head dim P
@@ -113,6 +121,25 @@ def _mamba_out(params, y, z, cd):
     return y @ params["out_proj"].to(cd)
 
 
+def _rows_under_mesh(out_axes=None):
+    """Under a mesh, run the decorated mixer on each rank's batch rows
+    (`sharding.local_region`) and hint its output to ``out_axes``."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(params, x, cfg, *args, **kw):
+            if active_mesh() is None:
+                return fn(params, x, cfg, *args, **kw)
+            out = local_region(fn, params, x, cfg, *args, **kw)
+            if out_axes is None:
+                return out
+            if isinstance(out, tuple):
+                return (hint(out[0], *out_axes),) + out[1:]
+            return hint(out, *out_axes)
+        return wrapped
+    return deco
+
+
+@_rows_under_mesh(("batch", None, "model_d"))
 def mamba2_seq(params, x, cfg: ArchConfig, state=None, return_state=False):
     """Chunked SSD over the full sequence. x: (B, S, D). With
     ``return_state`` also returns (h_final (B, H, P, N) float32, the last
@@ -238,6 +265,7 @@ def _mlstm_out(params, y, gate, cd):
     return y @ params["down"].to(cd)
 
 
+@_rows_under_mesh()
 def mlstm_seq(params, x, cfg: ArchConfig, return_state: bool = False):
     """Parallel (attention-like) stabilised mLSTM. x: (B, S, D). With
     ``return_state`` also returns the recurrent state at position S-1,
@@ -344,6 +372,7 @@ def slstm_init_state(B: int, D: int, device):
                                       device=device))
 
 
+@_rows_under_mesh()
 def slstm_seq(params, x, cfg: ArchConfig, return_state: bool = False):
     """The sLSTM recurrence over the sequence, one position at a time."""
     B, S, D = x.shape

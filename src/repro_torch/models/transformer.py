@@ -39,6 +39,8 @@ from repro_torch.models import ssm
 from repro_torch.models.base import ArchConfig, ParamTree, dense_init
 from repro_torch.models.layers import (KVCache, attend, init_attn, init_mlp,
                                        mlp, rms_norm)
+from repro_torch.models.sharding import (active_mesh, bind, hint, replicate,
+                                         vocab_gather)
 
 ATTN_KINDS = ("attn", "attn_local", "attn_moe", "shared_attn", "enc_attn")
 KV_CACHE_KINDS = ("attn", "attn_local", "attn_moe", "shared_attn", "cross",
@@ -309,18 +311,23 @@ class Model(nn.Module):
     def _block(self, layer, x, kind, **kw):
         """`apply_block`, under `checkpoint` where autograd records, the
         config sets remat and no cache is written (the JAX package's
-        condition): recomputed in the backward."""
+        condition): recomputed in the backward, under the same mesh rules
+        (`sharding.bind`)."""
+        block = bind(apply_block)
         if self.cfg.remat and torch.is_grad_enabled() and \
                 kw.get("cache") is None and not kw.get("decode"):
-            return checkpoint(apply_block, layer, x, self.cfg, kind,
+            return checkpoint(block, layer, x, self.cfg, kind,
                               use_reentrant=False, preserve_rng_state=False,
                               **kw)
-        return apply_block(layer, x, self.cfg, kind, **kw)
+        return block(layer, x, self.cfg, kind, **kw)
 
     # ---------------- embedding / heads ----------------
     def _embed(self, tokens):
         cfg = self.cfg
-        if torch.is_grad_enabled() and self.embed.requires_grad:
+        if active_mesh() is not None:
+            # a vocab-sharded table is gathered from where its rows lie
+            x = vocab_gather(self.embed, tokens, cfg.cdtype)
+        elif torch.is_grad_enabled() and self.embed.requires_grad:
             # cast the table, then gather, as the JAX package does: the
             # gradient is then scattered in the compute dtype, as JAX's is
             x = self.embed.to(cfg.cdtype)[tokens]
@@ -330,7 +337,7 @@ class Model(nn.Module):
         if cfg.embed_scale_sqrt_d:
             # sqrt(d_model) rounded to the compute dtype first, as in JAX
             x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype))
-        return x
+        return hint(x, "batch", None, None)
 
     def _logits(self, x):
         cfg = self.cfg
@@ -339,7 +346,7 @@ class Model(nn.Module):
         logits = x @ head.to(cfg.cdtype)
         if cfg.final_softcap:
             logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
-        return logits
+        return hint(logits, "batch", None, "vocab")
 
     def _run_stack(self, x, *, positions, memory=None, memory_positions=None,
                    caches=None, decode=False, pad=None):
@@ -347,6 +354,10 @@ class Model(nn.Module):
         shared = getattr(self, "shared_attn", None)
         new_caches, aux = [], 0.0
         for i, layer in enumerate(self.layers):
+            if self.cfg.seq_parallel_residual and not decode:
+                # Megatron-style sequence parallelism: the block-boundary
+                # residual (what remat saves) is sharded seq-over-TP
+                x = hint(x, "batch", "seq_mp", None)
             x, c, a = self._block(
                 layer, x, layer.kind, positions=positions,
                 memory=memory, memory_positions=memory_positions,
@@ -355,11 +366,12 @@ class Model(nn.Module):
             new_caches.append(c)
             aux = aux + a
         if not torch.is_tensor(aux):
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            aux = replicate(torch.zeros((), dtype=torch.float32,
+                                        device=x.device))
         return x, (new_caches if caches is not None else None), aux
 
     def _positions(self, B, S, device):
-        return torch.arange(S, device=device)[None, :].expand(B, S)
+        return replicate(torch.arange(S, device=device)[None, :].expand(B, S))
 
     def _encode_memory(self, batch):
         """(memory (B, M, D), memory positions (M,)) of the VLM projection
@@ -369,11 +381,11 @@ class Model(nn.Module):
         cd = cfg.cdtype
         if cfg.family == "vlm":
             mem = batch["patch_embeds"].to(cd) @ self.vision_proj.to(cd)
-            return mem, torch.arange(mem.shape[1], device=mem.device)
+            return mem, replicate(torch.arange(mem.shape[1], device=mem.device))
         if cfg.enc_dec:
             enc = self.encoder
             mem = batch["frames"].to(cd) @ enc.frame_proj.to(cd)
-            pos = torch.arange(mem.shape[1], device=mem.device)
+            pos = replicate(torch.arange(mem.shape[1], device=mem.device))
             for layer in enc.stack:
                 mem, _, _ = self._block(layer, mem, "enc_attn", positions=pos)
             return rms_norm(mem, enc.final_norm, cfg.rms_eps), pos
@@ -392,6 +404,9 @@ class Model(nn.Module):
         VLM / audio families, "patch_embeds" / "frames". Returns (logits
         (B, S, V) in the compute dtype, aux: the summed MoE load-balance
         loss, a float32 scalar)."""
+        return bind(self._forward)(batch)
+
+    def _forward(self, batch):
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = self._with_positions(self._embed(tokens), 0)

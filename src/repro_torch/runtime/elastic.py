@@ -8,7 +8,8 @@ whole HCUs from the global state.
 
 Components:
   remesh(tree, mesh, specs)   this rank's placement of a global tree on a
-                              (new) HCU mesh (`launch.mesh.HcuMesh`)
+                              (new) HCU mesh (`launch.mesh.HcuMesh`) or LM
+                              mesh (a DeviceMesh, DTensor leaves)
   remesh_network              the same for a BCPNN network (state + conn)
   StragglerMonitor            per-step deadline tracking; slow-step log +
                               skip-budget accounting (BCPNN spikes are
@@ -39,15 +40,39 @@ import torch
 from repro_torch.checkpoint import AsyncCheckpointer, restore_latest
 from repro_torch.checkpoint.checkpointer import _flatten, _unflatten
 from repro_torch.core import distributed as DD
+from repro_torch.launch.mesh import HcuMesh
+from repro_torch.models.sharding import P, placements, shard_tensor
 
 
 def remesh(tree, mesh, specs):
     """This rank's placement of a global ``tree`` (a host copy, or tensors
-    on any device) on ``mesh``, under a congruent tree of specs
-    (`distributed.SHARD` / `REPLICATE`) or one spec for every leaf: each
+    on any device) on ``mesh``. Pure data movement, bitwise.
+
+    On an HCU mesh (`launch.mesh.HcuMesh`) ``specs`` is a congruent tree of
+    `distributed.SHARD` / `REPLICATE` or one spec for every leaf: each
     sharded leaf cut to the rank's part of its leading axis, new tensors on
-    the mesh's device. Pure data movement, bitwise."""
-    return DD.place(tree, mesh, specs)
+    the mesh's device. On an LM mesh (a DeviceMesh) ``specs`` is a
+    congruent tree of `models.sharding.P` or one `P` for every leaf: each
+    leaf becomes a DTensor of the spec's placements (a DTensor leaf is
+    gathered first, so a tree moves between meshes)."""
+    if isinstance(mesh, HcuMesh):
+        return DD.place(tree, mesh, specs)
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.shardings import tree_map_with_path
+    leaves, _ = _flatten(tree)
+    if isinstance(specs, P):
+        spec_leaves = [specs] * len(leaves)
+    else:
+        spec_leaves = []
+        tree_map_with_path(lambda _, s: spec_leaves.append(s), specs)
+    if len(spec_leaves) != len(leaves):
+        raise ValueError(f"{len(spec_leaves)} specs for {len(leaves)} leaves")
+
+    def one(x, s):
+        x = x.full_tensor() if isinstance(x, DTensor) else torch.as_tensor(x)
+        return shard_tensor(x, mesh, placements(s, mesh))
+    return _unflatten(tree, iter(one(x, s)
+                                 for x, s in zip(leaves, spec_leaves)))
 
 
 def remesh_network(state, conn, mesh, axis="hcu"):

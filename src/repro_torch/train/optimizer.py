@@ -20,6 +20,8 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 
 class AdamWState(NamedTuple):
@@ -38,13 +40,22 @@ class AdamW:
     grad_clip: float = 1.0
     warmup_steps: int = 100
 
-    def init(self, params) -> AdamWState:
-        z = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    def init(self, params, placements=None) -> AdamWState:
+        """Zero moments congruent with ``params``. DTensor parameters get
+        DTensor moments, laid out as ``placements`` (name -> placements,
+        `launch.shardings.opt_specs`) or, by default, as the parameters."""
+        def z(n, p):
+            if not isinstance(p, DTensor):
+                return torch.zeros(p.shape, dtype=torch.float32,
+                                   device=p.device)
+            from torch.distributed.tensor import zeros
+            place = p.placements if placements is None else placements[n]
+            return zeros(p.shape, dtype=torch.float32,
+                         device_mesh=p.device_mesh, placements=place)
         dev = next(iter(params.values())).device
         return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                          mu={n: z(p) for n, p in params.items()},
-                          nu={n: z(p) for n, p in params.items()})
+                          mu={n: z(n, p) for n, p in params.items()},
+                          nu={n: z(n, p) for n, p in params.items()})
 
     def schedule(self, step):
         """The learning rate at ``step`` (an int32 tensor): float32."""
@@ -60,9 +71,25 @@ class AdamW:
         ``groups``: the JAX tree's leaves in its flatten order, each a list
         of names whose squares sum into that leaf's term of the norm
         (default: one sorted name a leaf).
+
+        DTensor parameters (a mesh) take their gradients in the moments'
+        layout first (a sum over the ranks that split the batch, scattered
+        where the moments are ZeRO-sharded); each leaf's sum of squares is
+        then a full reduction over the ranks, and the leaves are summed in
+        the same order. The update itself is elementwise, on each rank's
+        local tensors; a ZeRO-sharded update is gathered into the
+        parameter's layout.
         """
         groups = groups if groups is not None else [[n] for n in sorted(params)]
-        sq = lambda n: torch.sum(torch.square(grads[n].float()))
+        sharded = isinstance(next(iter(params.values())), DTensor)
+        if sharded:
+            grads = {n: grads[n].redistribute(state.mu[n].device_mesh,
+                                              state.mu[n].placements)
+                     for n in params}
+            sums = _sums_of_squares(grads)
+            sq = lambda n: sums[n]
+        else:
+            sq = lambda n: torch.sum(torch.square(grads[n].float()))
         gnorm = torch.sqrt(sum(sum(sq(n) for n in g) for g in groups))
         scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
         step = state.step + 1
@@ -73,13 +100,58 @@ class AdamW:
 
         with torch.no_grad():
             for n, p in params.items():
-                g = grads[n].float() * scale
-                m = self.b1 * state.mu[n] + (1 - self.b1) * g
-                v = self.b2 * state.nu[n] + (1 - self.b2) * g * g
-                u = (m / c1) / (torch.sqrt(v / c2) + self.eps)
-                u = u + self.weight_decay * p.float()
-                p.copy_((p.float() - lr * u).to(p.dtype))
-                state.mu[n].copy_(m)
-                state.nu[n].copy_(v)
+                if not sharded:
+                    self._step(p, grads[n], state.mu[n], state.nu[n], scale,
+                               lr, c1, c2)
+                    continue
+                mu = state.mu[n]
+                mesh, place = mu.device_mesh, mu.placements
+                if tuple(place) == tuple(p.placements):
+                    self._step(p.to_local(), grads[n].to_local(),
+                               mu.to_local(), state.nu[n].to_local(), scale,
+                               lr, c1, c2)
+                    continue
+                shard = p.redistribute(mesh, place).to_local().clone()
+                self._step(shard, grads[n].to_local(), mu.to_local(),
+                           state.nu[n].to_local(), scale, lr, c1, c2)
+                new = DTensor.from_local(shard, mesh, place, run_check=False)
+                p.to_local().copy_(new.redistribute(
+                    mesh, p.placements).to_local())
         return (params, AdamWState(step, state.mu, state.nu),
                 {"grad_norm": gnorm, "lr": lr})
+
+    def _step(self, p, g, mu, nu, scale, lr, c1, c2):
+        """The elementwise update of one parameter, in place on plain
+        tensors (the parameter, its gradient and moments, one layout)."""
+        g = g.float() * scale
+        m = self.b1 * mu + (1 - self.b1) * g
+        v = self.b2 * nu + (1 - self.b2) * g * g
+        u = (m / c1) / (torch.sqrt(v / c2) + self.eps)
+        u = u + self.weight_decay * p.float()
+        p.copy_((p.float() - lr * u).to(p.dtype))
+        mu.copy_(m)
+        nu.copy_(v)
+
+
+def _sums_of_squares(grads) -> dict:
+    """name -> the sum of squares of its DTensor gradient (no Partial
+    placement left), a plain 0-d float32 tensor on every rank: the local
+    sums, summed over the mesh dims that shard each one, with one
+    all-reduce per set of such dims."""
+    out, pending = {}, {}
+    for n, g in grads.items():
+        local = torch.sum(torch.square(g.to_local().float()))
+        mesh = g.device_mesh
+        dims = tuple(i for i, p in enumerate(g.placements)
+                     if isinstance(p, Shard) and mesh.size(i) > 1)
+        if dims:
+            pending.setdefault((id(mesh), dims), (mesh, dims, []))[2].append(
+                (n, local))
+        else:
+            out[n] = local
+    for mesh, dims, items in pending.values():
+        v = torch.stack([t for _, t in items])
+        for i in dims:
+            dist.all_reduce(v, group=mesh.get_group(i))
+        out.update((n, s) for (n, _), s in zip(items, v))
+    return out

@@ -22,6 +22,9 @@ then read its results. Held there:
   counter back as its device 0's; `distributed.drop_counters` gives rank
   0's, on every rank.
 
+The ranks also build the LM meshes (`make_host_mesh`, and
+`make_production_mesh`'s refusal on 4 ranks).
+
 In the pytest process: `pack_spikes` / `unpack_spikes` and the route
 configurations against the JAX package's (one child) over a grid of
 h_local, n_dev and parameters, the spike word's round trip, and
@@ -192,6 +195,19 @@ def _ranks_main(rank, world):
             out[f"one_rank/{'worklist' if wl else 'dense'}"] = dict(
                 dist=(torch.stack(fd).numpy(), convert.state_to_numpy(s_d)),
                 local=(torch.stack(fs).numpy(), convert.state_to_numpy(s_s)))
+
+    # the LM meshes (the LM sharding itself: tests/test_torch_lm_sharded.py)
+    lm = {}
+    for tag, shape in (("host", None), ("square", (2, 2))):
+        m = M.make_host_mesh(shape, device="cpu")
+        lm[tag] = (tuple(m.shape), tuple(m.mesh_dim_names), m.device_type)
+    for tag, kw in (("production", {}), ("multi_pod", dict(multi_pod=True))):
+        try:
+            M.make_production_mesh(device="cpu", **kw)
+            lm[tag] = None
+        except ValueError as e:
+            lm[tag] = str(e)
+    out["lm_meshes"] = lm
     return out
 
 
@@ -421,10 +437,18 @@ def test_run_sharded_refuses_what_it_cannot_shard(kw, match):
         sim.run_sharded(np.full((1, 8, 8), P8.rows, np.int32))
 
 
-def test_lm_meshes_wait_for_item_8():
-    for fn in (M.make_production_mesh, M.make_host_mesh):
-        with pytest.raises(NotImplementedError, match="queue A item 8"):
-            fn()
+def test_lm_meshes_wait_for_item_8(ranks):
+    """The LM meshes on the 4 ranks: `make_host_mesh`'s default shape
+    (world, 1) and a (2, 2), with the JAX package's axis names; the
+    production meshes need more ranks than the group has and say how
+    many."""
+    lm = ranks[0]["lm_meshes"]
+    assert lm["host"] == ((WORLD, 1), ("data", "model"), "cpu")
+    assert lm["square"] == ((2, 2), ("data", "model"), "cpu")
+    assert lm["production"] == ("a (16, 16) mesh needs 256 ranks, the "
+                                "process group has 4")
+    assert lm["multi_pod"] == ("a (2, 16, 16) mesh needs 512 ranks, the "
+                               "process group has 4")
 
 
 # -- on the card ---------------------------------------------------------------

@@ -18,7 +18,8 @@ against the JAX package's, on the CPU.
   position), every leaf bit for bit, then one more step each side.
 * The port's counterparts of tests/test_train.py (loss decreases on the
   smoke qwen2, checkpoint-resume is exact, the grad clip engages), remat
-  against no remat, and the launcher's refusal of a mesh.
+  against no remat, and the launcher's refusal of a mesh that is not a
+  DeviceMesh.
 * On the card (``cuda``): the fixture at float32 on CUDA, resume-exact at
   smoke size, and the flash kernel's backward raising.
 
@@ -549,7 +550,9 @@ def test_train_step_refuses_foreign_params(fixture):
 
 
 def test_train_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="queue A item 8c"):
+    """A mesh that is not a DeviceMesh is refused (the sharded runs are
+    tests/test_torch_lm_sharded.py's)."""
+    with pytest.raises(TypeError, match="must be a DeviceMesh"):
         LT.train("qwen2-1.5b", steps=1, batch=2, seq=8, mesh=object(),
                  device="cpu")
 
