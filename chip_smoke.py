@@ -21,9 +21,13 @@ toolkit. Phases, in order; any failure exits non-zero:
                before each), the worklist kernels under every layout, beside
                the plain version (flat) and two bounds: the function's bytes
                and the layout's 32-byte sectors
-               (`layout.cache_lines_touched_per_s(..., line_bytes=32)`). The
-               (xr, 4) tile with the least row + column kernel time is the
-               tile phase 5's fused_blocked path runs.
+               (`layout.cache_lines_touched_per_s(..., line_bytes=32)`),
+               and beside time_cuda's floor (an empty kernel,
+               `torch.cuda._sleep(0)`, timed the same way). The unfused
+               worklist kernel reads the slot-ordered worklist through its
+               compaction (order, nv) and the (H, C) j-vectors in place.
+               The (xr, 4) tile with the least row + column kernel time is
+               the tile phase 5's fused_blocked path runs.
   4. fixtures — the head fixtures of tests/fixtures on the card through the
                kernels, each under the flags it was captured with
                (head_lazy_worklist in all four fused / fused_cols
@@ -119,7 +123,19 @@ toolkit. Phases, in order; any failure exits non-zero:
                `torch.nn.functional.scaled_dot_product_attention` with
                enable_gqa=True on contiguous (B, H, Sq, hd) / (B, Kv,
                kv_len, hd) copies at every shape without softcap or window
-               (the library yardstick; the port never calls it).
+               (the library yardstick; the port never calls it), and
+               time_cuda's floor.
+  6b. flash f32 — qwen2-1.5b at full width with compute_dtype="float32"
+               and attn_impl="pallas_flash" (random weights from seed 0):
+               one wave of 4 requests of 1024 tokens through
+               `ServingEngine(4, 1152)`. The launch counters are set to 0
+               just before: flash must launch 28 times, every time
+               `flash_fwd_kernel`, and no BCPNN kernel. A warm prefill's
+               logits are held against dense float32 attention on the same
+               weights (max |diff| / max |dense| < 1e-3), and a profiled
+               prefill must show 28 `flash_fwd_kernel` launches. Prints the
+               wave's and a warm prefill's ms and the kernel's share of the
+               profiled prefill's device time.
   7. lm      — the LM fixture (tests/fixtures/lm_serve_smoke.npz, qwen2-1.5b
                and gemma2-9b smoke configs at float32 compute) served on the
                card through the kernel: prefill logits within atol 2e-5 of
@@ -185,6 +201,12 @@ toolkit. Phases, in order; any failure exits non-zero:
                    two sessions to finish, re-run alone through
                    `Simulator.run(chunk=12)` from the template, equal
                    their lanes bit for bit (fired history and every leaf).
+                   One more step, profiled, must leave every lane's tick
+                   counter SERVE_STEP ticks past the template's on the
+                   device, and each lane's graph must hold SERVE_STEP
+                   kernel nodes of each fused kernel (driver API); the
+                   trace's count of kernels is printed, not checked (it
+                   can lose a record: tools/serve_profile_probe.py).
                    Prints qps, p50 / p95 service and sojourn ms, the
                    statuses, ms per step and per lane-tick, graph nodes a
                    step, peak GiB, the health verdict and drops, and the
@@ -291,8 +313,8 @@ toolkit. Phases, in order; any failure exits non-zero:
  13. report  — one JSON line of the kernels (with each BCPNN kernel's
                launches on the phase 8 paths, counted at capture, and on
                the sharded paths of phase 9 under ``launches_by_path``;
-               flash's launches are the LM serving runs' of phases 7 and
-               10, by model under ``launches_by_path``, beside phase
+               flash's launches are the LM serving runs' of phases 6b, 7
+               and 10, by model under ``launches_by_path``, beside phase
                11b's and 12's training runs, which launch none, and its
                numbers at every phase 6 shape under ``by_shape``), then
                the last line {"ok": true, "device": {...}}.
@@ -385,6 +407,14 @@ def time_cuda(fn, flush):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def floor_ms(flush):
+    """`time_cuda`'s floor: a kernel that returns at once
+    (`torch.cuda._sleep(0)`), timed the same way, L2 flush included. A
+    small kernel's distance from its bound is read against it."""
+    import torch
+    return time_cuda(lambda: torch.cuda._sleep(0), flush)
 
 
 def row_inputs(p, gen, dev):
@@ -513,17 +543,15 @@ def phase_kernels(p, dev):
     nv = int((rin["rows"] < n * R).sum())
     nf = int((cin["h_idx"] < n).sum())
     K = cin["h_idx"].shape[0]
-    # the unfused worklist: the row phase's worklist compacted valid-first,
-    # the sentinel past nv, zj / pj gathered per entry as the engine does
+    # the unfused worklist: the row phase's slot-ordered worklist and its
+    # valid-first compaction, as `worklist.build_worklist` makes them
     valid = rin["rows"] < n * R
-    order = torch.argsort((~valid).to(torch.int32), stable=True)
+    order = torch.argsort((~valid).to(torch.int32), stable=True).to(torch.int32)
     nv_t = valid.sum().to(torch.int32).reshape(1)
-    h_of = order // A
-    wl = dict(rows=torch.where(valid[order], rin["rows"][order], n * R),
-              counts=rin["counts"][order], zj=rin["zj"][h_of],
-              p_i=rin["p_i"][order], pj=rin["pj"][h_of])
-    print(f"kernels: {nv} valid of {W} row slots, {nf} fired of {K} column "
-          f"entries, R={R} C={C}, {n} HCUs")
+    live_hcus = int((valid.reshape(n, A).any(dim=1)).sum())
+    print(f"kernels: {nv} valid of {W} row slots ({live_hcus} HCUs), {nf} "
+          f"fired of {K} column entries, R={R} C={C}, {n} HCUs; time_cuda's "
+          f"floor (an empty kernel) {floor_ms(flush):.5f} ms")
 
     def row_call(lay):
         return lambda fn, pl: fn(
@@ -538,8 +566,9 @@ def phase_kernels(p, dev):
 
     def wl_call(lay):
         return lambda fn, pl: fn(
-            *(pl[f] for f in names5), wl["rows"], nv_t, now, wl["counts"],
-            wl["zj"], wl["p_i"], wl["pj"], k, eps, layout=lay)
+            *(pl[f] for f in names5), rin["rows"], order, nv_t, now,
+            rin["counts"], rin["zj"], rin["p_i"], rin["pj"], k, eps,
+            layout=lay)
 
     # bytes each kernel moves at these inputs, by the function (each plane
     # cell, vector and weight row once) and by the layout's 32-byte sectors
@@ -551,8 +580,10 @@ def phase_kernels(p, dev):
     def col_bytes(col):
         return nf * (9 * col + R * 16 + 4) + K * 8
 
+    # the unfused kernel: a live entry's planes and its slot's order, row,
+    # count and p_i; the j-vectors of the HCUs with a live entry; nv, now
     def wl_bytes(row):
-        return nv * (9 * row + C * 8 + 12) + 8
+        return nv * (9 * row + 16) + live_hcus * C * 8 + 8
 
     specs = (("fused_row_update", row_call, NAMES9, row_bytes, "row",
               nv * C, "fused_row_update_kernel_call"),
@@ -962,6 +993,49 @@ def graph_nodes(graph):
     if rc:
         fail(f"cuGraphGetNodes failed (CUresult {rc})")
     return count.value
+
+
+def graph_kernels(graph):
+    """The kernel nodes of a captured CUDA graph by function name, a
+    Counter, read through the driver API (`cuGraphGetNodes`,
+    `cuGraphNodeGetType`, `cuGraphKernelNodeGetParams_v2`, then
+    `cuFuncGetName` or, for a node that holds a CUkernel,
+    `cuKernelGetName`). What a replay runs is exactly these nodes."""
+    import collections
+    import ctypes
+    lib = ctypes.CDLL("libcuda.so.1")
+    P, u = ctypes.c_void_p, ctypes.c_uint
+
+    class Params(ctypes.Structure):   # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = ([("func", P)] + [(f, u) for f in (
+            "gx", "gy", "gz", "bx", "by", "bz", "smem")]
+            + [("params", P), ("extra", P), ("kern", P), ("ctx", P)])
+
+    def call(fn, *args):
+        rc = getattr(lib, fn)(*args)
+        if rc:
+            fail(f"{fn} failed (CUresult {rc})")
+
+    g = P(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", g, None, ctypes.byref(n))
+    nodes = (P * n.value)()
+    call("cuGraphGetNodes", g, nodes, ctypes.byref(n))
+    out = collections.Counter()
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        call("cuGraphNodeGetType", P(node), ctypes.byref(kind))
+        if kind.value != 0:                  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        prm = Params()
+        call("cuGraphKernelNodeGetParams_v2", P(node), ctypes.byref(prm))
+        name = ctypes.c_char_p()
+        if prm.func:
+            call("cuFuncGetName", ctypes.byref(name), P(prm.func))
+        else:
+            call("cuKernelGetName", ctypes.byref(name), P(prm.kern))
+        out[name.value.decode()] += 1
+    return out
 
 
 def run_path(name, p, ext, kw):
@@ -1504,6 +1578,7 @@ def phase_flash(dev):
     import torch
     from repro_torch.kernels import flash_attention as FA
     flush = torch.ones(64 << 20, dtype=torch.uint8, device=dev)
+    print(f"flash: time_cuda's floor (an empty kernel) {floor_ms(flush):.5f} ms")
     report = None
     for name, (B, H, Kv, Sq, Skv, hd, dtype, kw) in FLASH_SHAPES.items():
         gen = torch.Generator(device=dev)
@@ -1754,6 +1829,83 @@ def phase_lm(dev, smi):
               f"{ops / LM_PROFILE_STEPS:.0f} device ops per step")
         print_rows(rows, LM_PROFILE_STEPS)
     del model, eng, caches, logits
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
+
+
+# phase 6b: flash_fwd_kernel against dense attention on the same float32
+# model, relative to the largest |logit|: both compute in float32 and
+# differ by summation order alone (phase 7's bf16 bound is 0.03)
+F32_DENSE_REL = 1e-3
+
+
+def phase_flash_f32(dev, smi):
+    """Phase 6b: one prefill wave of qwen2-1.5b at full width with float32
+    compute, through `flash_fwd_kernel`. Returns its flash launches."""
+    import dataclasses
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import Request, ServingEngine
+    from repro_torch.models.transformer import Model
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"),
+                              attn_impl="pallas_flash",
+                              compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, seed=0)                  # the default device: CUDA
+    eng = ServingEngine(model, LM_SLOTS, LM_MAX_LEN)
+    pre_ms = []
+    eng.prefill = timed(eng.prefill, pre_ms)
+    gen = np.random.default_rng(0)
+    prompts = [gen.integers(0, cfg.vocab, LM_PROMPT) for _ in range(LM_SLOTS)]
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid, p, 1))
+    reset_launches()
+    done = eng.run()
+    counts, routes = read_launches(), dict(FA.routes)
+    want = {k: cfg.n_layers * (k == "flash_attention") for k in counts}
+    if counts != want or routes != {"mma": 0, "simt": cfg.n_layers}:
+        fail(f"6b: launches {json.dumps(counts)}, by kernel {routes}; "
+             f"expected {cfg.n_layers} of flash_fwd_kernel and nothing else")
+    toks = [t for r in done for t in r.out]
+    if len(toks) != LM_SLOTS or not all(0 <= t < cfg.vocab for t in toks):
+        fail(f"6b: tokens {toks}")
+    batch, pad = eng.wave_inputs([Request(0, p, 1) for p in prompts])
+    with torch.no_grad():
+        warm = timed(model.prefill, pre_ms)
+        logits, _ = warm(batch, model.init_cache(LM_SLOTS, LM_MAX_LEN), pad)
+        dense = Model(dataclasses.replace(cfg, attn_impl="dense"),
+                      device="meta")
+        dense.load_state_dict(model.state_dict(), assign=True)
+        ref, _ = dense.prefill(batch, dense.init_cache(LM_SLOTS, LM_MAX_LEN))
+        rel = float((logits - ref).abs().max() / ref.abs().max())
+        del dense, ref
+        if not (rel < F32_DENSE_REL and bool(torch.isfinite(logits).all())):
+            fail(f"6b: flash vs dense float32 prefill logits rel err {rel}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.prefill(batch, model.init_cache(LM_SLOTS, LM_MAX_LEN), pad)
+            torch.cuda.synchronize()
+    rows, total = device_rows(prof)
+    n_fwd = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and "flash_fwd_kernel" in e.key)
+    if n_fwd != cfg.n_layers:
+        fail(f"6b: the profile shows {n_fwd} flash_fwd_kernel launches")
+    flash = sum(t for k, t in rows if "flash_fwd_kernel" in k)
+    print(f"6b [{smi}]: {cfg.arch_id} at full width, float32 compute: one "
+          f"wave of {LM_SLOTS} x {LM_PROMPT} tokens through ServingEngine("
+          f"{LM_SLOTS}, {LM_MAX_LEN}): flash launches by kernel "
+          f"{json.dumps(routes)}; prefill ms {pre_ms[0]:.2f} (the wave, "
+          f"first), {pre_ms[1]:.2f} (warm); flash vs dense float32 logits "
+          f"rel err {rel:.3g} (< {F32_DENSE_REL}); profiled prefill: "
+          f"{n_fwd} flash_fwd_kernel launches, {flash:.3f} ms of "
+          f"{total:.3f} ms device time ({flash / total:.1%}); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print_rows(rows)
+    del model, eng, logits
     torch.cuda.empty_cache()
     return counts["flash_attention"]
 
@@ -2465,7 +2617,15 @@ def profile_serve_step(srv, patterns, p):
     measured run), replays only, in torch.profiler with device activity
     only: the device's busy time and operations a lane-tick, the span and
     idle share of the profiled step, and the kernels that take the most
-    time (the profiler stretches the step it records)."""
+    time (the profiler stretches the step it records).
+
+    What the step ran is checked on the program, not on the trace: every
+    lane's tick counter on the device advanced SERVE_STEP ticks from the
+    template's, and each lane's graph holds SERVE_STEP kernel nodes of
+    each fused kernel and none of another BCPNN kernel (a replay runs
+    every node). The trace's own count is printed beside: it lost a
+    kernel record in 2 of 30 profiled steps whose lanes were all right
+    (tools/serve_profile_probe.py)."""
     import collections
     import torch
     from torch.autograd import DeviceType
@@ -2483,6 +2643,22 @@ def profile_serve_step(srv, patterns, p):
         torch.cuda.synchronize()
     if srv.captures != captures:
         fail("serve profile: the profiled step captured")
+    t_lanes = srv.stacked.t.cpu().tolist()
+    if t_lanes != [int(srv.template.t) + SERVE_STEP] * SERVE_SLOTS:
+        fail(f"serve profile: lane tick counters {t_lanes} after one step "
+             f"of {SERVE_STEP} ticks from {int(srv.template.t)}")
+    nodes = []
+    for lane in srv.graphs:
+        cnt = collections.Counter()
+        for g in lane.captured.values():
+            cnt.update(graph_kernels(g))
+        nodes.append({k: sum(c for nm, c in cnt.items() if tag in nm)
+                      for k, tag in KERNEL_TAGS.items()})
+    want_nodes = {k: SERVE_STEP * (k in BCPNN_KERNELS[:2])
+                  for k in KERNEL_TAGS}
+    if any(d != want_nodes for d in nodes):
+        fail(f"serve profile: the lanes' graphs hold {nodes} kernel nodes, "
+             f"expected {want_nodes} each")
     evs = sorted((e.time_range.start, e.time_range.end, e.name)
                  for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not evs:
@@ -2499,12 +2675,12 @@ def profile_serve_step(srv, patterns, p):
         by[nm][1] += 1
     busy = sum(v[0] for v in by.values()) / n
     ran = {k: sum(tag in e[2] for e in evs) for k, tag in KERNEL_TAGS.items()}
-    if ran["fused_row_update"] != n or ran["fused_col_update"] != n or \
-            any(ran[k] for k in BCPNN_KERNELS[2:]):
-        fail(f"serve profile: kernels ran {ran} in {n} lane-ticks")
     top = sorted(by.items(), key=lambda kv: -kv[1][0])[:8]
     print(f"serve profile: one step of {n} lane-ticks (replays only, device "
-          f"activity only): kernels ran {json.dumps(ran)}; device busy "
+          f"activity only): every lane's t {t_lanes[0]} on the device, each "
+          f"lane's graph {json.dumps(want_nodes)} kernel nodes; the trace "
+          f"recorded {json.dumps(ran)} (not a check: the profiler can lose "
+          f"a record); device busy "
           f"{busy:.1f} us per lane-tick in {len(evs) / n:.1f} device ops; "
           f"span {span / n:.1f} us per lane-tick, idle share of the profiled "
           f"step {1 - union / span:.4f}")
@@ -3350,9 +3526,11 @@ def main():
     done("recall")
     flash = phase_flash(dev)
     done("flash")
+    by_path = {"qwen2-1.5b f32 prefill": phase_flash_f32(dev, smi)}
+    done("flash f32 prefill")
     phase_lm_fixture(dev)
     phase_lm_families_fixture(dev)
-    by_path = {"qwen2-1.5b": phase_lm(dev, smi)}
+    by_path["qwen2-1.5b"] = phase_lm(dev, smi)
     done("lm")
     phase_sharded(report)
     done("sharded")
@@ -3378,7 +3556,8 @@ def main():
           "computes a cell-math pass; flash_attention's is "
           "scaled_dot_product_attention (enable_gqa) at the qwen2-1.5b bf16 "
           "shape (by_shape: at each shape without softcap or window); its "
-          "launches are the LM serving runs' of phases 7 and 10; training "
+          "launches are the LM serving runs' of phases 6b, 7 and 10; "
+          "training "
           "(phases 11b and 12) launches none of the six kernels")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

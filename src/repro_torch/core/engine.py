@@ -163,9 +163,11 @@ def worklist_lazy_rows(hcus: H.HCUState, rows, t, p: BCPNNParams,
     worklist (the H*R sentinel on padding and duplicate slots) rewrites
     the ij-plane rows and i-vector cells and returns the weight rows; it
     reads each slot's zj / pj from the (H, C) j-vectors itself.
-    Unfused: one `ops.worklist_row_update` call over the worklist
-    compacted valid-first, then the i-vector writes, then the weight rows
-    gathered back from the updated Wij. Both give the same bits."""
+    Unfused: one `ops.worklist_row_update` call that reads the same
+    slot-ordered worklist through its valid-first compaction (``order``,
+    ``nv``) and the j-vectors in place, then the i-vector writes, then the
+    weight rows gathered back from the updated Wij. Both give the same
+    bits."""
     c = _row_worklist_common(hcus, rows, t, p)
     hcus = c["hcus"]
     n, A = c["n"], c["A"]
@@ -181,16 +183,11 @@ def worklist_lazy_rows(hcus: H.HCUState, rows, t, p: BCPNNParams,
             layout=layout)
         return hcus, w_flat.reshape(n, A, p.cols), c
     HR = n * p.rows
-    order = c["order"].long()
-    h_of = order // A
-    W = order.shape[0]
-    rows_k = torch.where(torch.arange(W, device=rows.device) < c["nv"],
-                         c["g_row"][order], HR)
     ops.worklist_row_update(
-        *_ij_flats(hcus), rows=rows_k, nv=c["nv"], now=t,
-        counts=c["counts"].reshape(-1)[order], zj=hcus.zj[h_of],
-        p_i=zep_i.p.reshape(-1)[order], pj=hcus.pj[h_of], coeffs=coeffs,
-        eps=p.eps, layout=layout)
+        *_ij_flats(hcus), g_row=c["g_row"], order=c["order"], nv=c["nv"],
+        now=t, counts=c["counts"].reshape(-1), zj=hcus.zj,
+        p_i=zep_i.p.reshape(-1), pj=hcus.pj, coeffs=coeffs, eps=p.eps,
+        layout=layout)
     H.write_ivecs(hcus, H.drop_redirect(c["g_safe"], c["rows_u"] < p.rows),
                   t, (c["zi_new"], zep_i.e, zep_i.p), c["iv_old"])
     g_row = c["g_row"].long()

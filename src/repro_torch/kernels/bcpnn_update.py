@@ -44,7 +44,7 @@ _ARGTYPES = {
     + _COEFFS + [_P],
     "bcpnn_fused_col_update": [_P] * 13 + [_I, _I] + _TILING + _COEFFS
     + [_F] * 6 + [_P],
-    "bcpnn_worklist_row_update": [_P] * 12 + [_I, _LL] + _TILING + [_I]
+    "bcpnn_worklist_row_update": [_P] * 13 + [_I, _I, _LL] + _TILING + [_I]
     + _COEFFS + [_P],
     "bcpnn_row_update": [_P] * 14 + [_LL, _I, _I] + _COEFFS + [_P],
     "bcpnn_col_update": [_P] * 13 + [_LL, _I] + _COEFFS + [_P],
@@ -346,72 +346,91 @@ def fused_col_update_plain(zij, eij, pij, wij, tij, zi, ei, pi, ti, pj,
 # unfused worklist row update
 # --------------------------------------------------------------------------
 
-def worklist_row_update_kernel(zij, eij, pij, wij, tij, rows, nv, now, counts,
-                               zj, p_i, pj, coeffs: DecayCoeffs, eps: float,
-                               layout=None):
+def worklist_row_update_kernel(zij, eij, pij, wij, tij, g_row, order, nv,
+                               now, counts, zj, p_i, pj, coeffs: DecayCoeffs,
+                               eps: float, layout=None):
     """The unfused worklist row update as one CUDA launch
     (`worklist_row_kernel`).
 
     Replaces `repro/kernels/bcpnn_update.py:worklist_update_kernel_call`
-    (`_worklist_kernel`). The W entries are compacted valid-first: entry i
-    is live when i < nv and rows[i] is a logical plane row, and then
-    applies the cell math to that row with dz = counts[i]*zj[i],
-    p_pre = p_i[i] and p_post = pj[i], and stamps Tij = now. Other entries
-    write nothing, whatever their row holds. The i-vectors and the weight
-    rows are the caller's.
+    (`_worklist_kernel`), reading through the compaction instead of the
+    per-entry copies the JAX engine gathers for it. The W = H*A slots are
+    slot-ordered, A per HCU (slot s belongs to HCU s // A), and ``order``
+    compacts the live ones first: entry i < nv takes slot s = order[i]
+    and, when g_row[s] is a logical plane row, applies the cell math to
+    that row with dz = counts[s]*zj[s // A], p_pre = p_i[s] and
+    p_post = pj[s // A], and stamps Tij = now. Entries at or past nv
+    write nothing, whatever ``order`` holds there. The i-vectors and the
+    weight rows are the caller's.
 
-    Bound on the H100: bytes. A live entry moves 11*C*4 bytes (reads z, e,
-    p, t, zj, pj; writes z, e, p, w, t) for ~33 float32 ops per cell.
-    Design: that of `fused_row_update_kernel` (one warp per entry, one lane
-    per 4-cell segment, the same `row_walk` device function), with nv read
-    on the device so the launch needs no host value; the TPU's junk row and
-    per-call `_pad2` plane copies are gone.
+    Bound on the H100: bytes and DRAM latency. A live entry reads z, e, p,
+    t and writes z, e, p, w, t (9*C*4 bytes) plus its slot's index and
+    scalars, for ~33 float32 ops a cell; the (H, C) j-vectors are read in
+    place, each HCU's once from DRAM. A row's reads sit behind two
+    dependent index loads (order, then g_row). Design: a grid of at most
+    64 warps an SM, a warp an entry, striding over i < nv; a warp reads
+    nv with its first slot, then the slot's row and scalars, then the
+    row's cells (one lane a 16-byte segment of 4 cells, or single cells on
+    a tile such as (7, 5)), and loads the next entry's slot, row and
+    scalars while those cells are in flight. Blocks of 4 warps where rows
+    share sectors (flat, (2, 4), (4, 4)), of 16 elsewhere (measured). nv
+    and now are read on the device: the launch needs no host value.
 
-    Planes (stored in ``layout``) are rewritten in place. rows (W,) int32;
-    nv and now int32 one-element tensors; counts / p_i (W,) and zj / pj
-    (W, C) float32. Launches on the current stream and never synchronises.
+    Planes (stored in ``layout``) are rewritten in place. g_row / order
+    (W,) int32; nv and now int32 one-element tensors; counts / p_i (W,)
+    and zj / pj (H, C) float32. Launches on the current stream and never
+    synchronises.
     """
     planes = (zij, eij, pij, wij, tij)
     dev, geom, n = _check_planes(planes, layout)
     C = geom.cols
-    W = rows.shape[0] if torch.is_tensor(rows) else -1
-    _check("rows", rows, torch.int32, (W,), dev)
+    W = g_row.shape[0] if torch.is_tensor(g_row) else -1
+    _check("g_row", g_row, torch.int32, (W,), dev)
+    _check("order", order, torch.int32, (W,), dev)
     _check_one("nv", nv, dev)
     _check_one("now", now, dev)
     _check("counts", counts, torch.float32, (W,), dev)
     _check("p_i", p_i, torch.float32, (W,), dev)
-    _check("zj", zj, torch.float32, (W, C), dev)
-    _check("pj", pj, torch.float32, (W, C), dev)
+    H = zj.shape[0] if torch.is_tensor(zj) and zj.dim() == 2 else -1
+    _check("zj", zj, torch.float32, (H, C), dev)
+    _check("pj", pj, torch.float32, (H, C), dev)
+    if H <= 0 or W % H:
+        raise ValueError(f"{W} slots are not A per HCU of {H}")
     if W == 0:
         return
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [t.data_ptr() for t in (*planes, rows, nv, now, counts, zj, p_i,
-                                   pj)]
+    ptrs = [t.data_ptr() for t in (*planes, g_row, order, nv, now, counts,
+                                   zj, p_i, pj)]
     vec = _vec_rows(geom, (*planes, zj, pj))
-    rc = _lib().bcpnn_worklist_row_update(*ptrs, W, n * geom.rows,
+    rc = _lib().bcpnn_worklist_row_update(*ptrs, W, W // H, n * geom.rows,
                                           *_tiling_args(geom), vec,
                                           *_coeff_args(coeffs, eps), stream)
     _raise_on(rc, "worklist_row_update")
     launches["worklist_row_update"] += 1
 
 
-def worklist_row_update_plain(zij, eij, pij, wij, tij, rows, nv, now, counts,
-                              zj, p_i, pj, coeffs: DecayCoeffs, eps: float,
-                              layout=None):
+def worklist_row_update_plain(zij, eij, pij, wij, tij, g_row, order, nv,
+                              now, counts, zj, p_i, pj, coeffs: DecayCoeffs,
+                              eps: float, layout=None):
     """Plain PyTorch version of `worklist_row_update_kernel` (same
-    arguments, same in-place effect): gather the live entries' rows through
-    the layout's index map, run the cell math, scatter back."""
+    arguments, same in-place effect): the live entries' slots and rows,
+    their rows gathered through the layout's index map, the cell math,
+    scatter back."""
     geom, n = _geometry(zij, layout)
     zf, ef, pf, wf, tf = _flat((zij, eij, pij, wij, tij))
-    W = rows.shape[0]
-    live = ((torch.arange(W, device=rows.device) < nv.reshape(()))
-            & (rows >= 0) & (rows < n * geom.rows))
-    sel = torch.nonzero(live).squeeze(1)
-    idx = geom.row_index(rows[sel].long())
+    W = order.shape[0]
+    A = W // zj.shape[0]
+    s = order[torch.arange(W, device=order.device) < nv.reshape(())].long()
+    s = s[(s >= 0) & (s < W)]
+    g = g_row[s].long()
+    keep = (g >= 0) & (g < n * geom.rows)
+    s, g = s[keep], g[keep]
+    idx = geom.row_index(g)                                      # (k, C)
+    h = s // A
     dt = (now - tf[idx]).to(torch.float32)
     z1, e1, p1, w1 = cell_math(zf[idx], ef[idx], pf[idx], dt,
-                               counts[sel, None] * zj[sel], p_i[sel, None],
-                               pj[sel], coeffs, eps)
+                               counts[s, None] * zj[h], p_i[s, None], pj[h],
+                               coeffs, eps)
     zf[idx], ef[idx], pf[idx], wf[idx] = z1, e1, p1, w1
     tf[idx] = now.to(tf.dtype).reshape(())
 

@@ -32,11 +32,12 @@
 // once a call. There is no reuse to stage, so neither shared memory nor TMA
 // has work to do here: the designs below are about how the bytes are
 // fetched. A row is C contiguous cells (flat) or C/xc segments of xc cells
-// (blocked); the row kernels give one warp a row and one lane a 16-byte
-// segment of 4 cells, so a row's loads are issued at once. A column is R
-// cells C*4 bytes apart (flat: one 32-byte sector a cell) or R/xr runs of xr
-// cells xc*4 bytes apart (blocked (xr, 4): one sector per two cells, in
-// contiguous xr*16-byte runs); the column kernel puts a warp's lanes on
+// (blocked); the row kernels give one lane a 16-byte segment of 4 cells
+// and one warp a row (the unfused one two rows, whose loads it issues
+// before either row's math), so a row's loads are issued at once. A
+// column is R cells C*4 bytes apart (flat: one 32-byte sector a cell) or
+// R/xr runs of xr cells xc*4 bytes apart (blocked (xr, 4): one sector per
+// two cells, in contiguous xr*16-byte runs); the column kernel puts a warp's lanes on
 // neighbouring rows, one row a thread: on the H100 that beat several rows a
 // thread with all their loads issued first, and streaming cache hints
 // (ld/st.global.cs) made neither kernel faster. DRAM moves 64-byte bursts,
@@ -206,30 +207,187 @@ fused_row_kernel(float* __restrict__ zij, float* __restrict__ eij,
   }
 }
 
-// The unfused worklist row update: entries are compacted valid-first and
-// entry i is live when i < *nv_p and its row is in range. Live entries'
-// rows are unique (deduplicated), so warps never share a row; the rest
-// write nothing. zj / pj are the caller's per-entry (W, C) rows.
+// The unfused worklist row update, reading through the compaction: entry
+// i < *nv_p takes slot s = order[i], whose row g_row[s] it rewrites when
+// that is a logical plane row, with dz = counts[s] * zj[s / A],
+// p_pre = p_i[s], p_post = pj[s / A] (the (H, C) j-vectors read in place,
+// as fused_row_kernel reads them). Live rows are unique, so no two entries
+// share a row; the rest write nothing.
+//
+// What bounds it is DRAM latency as much as bytes: a live entry reads
+// 4 x C x 4 plane bytes behind two dependent index loads (order, then
+// g_row), and the call's reads alone take ~2 us at 3.35 TB/s. The grid
+// holds at most kWlResident warps an SM, each striding over the entries
+// i, i + G, ... (G warps in all; the grid is sized from W and the SM count
+// on the host). A warp reads the valid count with its first slot, then
+// that slot's row and scalars, then the row's cells and j-vector cells;
+// the next entry's slot, row and scalars load while the current row's
+// cells are in flight, before its math. A lane holds up to 4 cells of a
+// row (kVec: the 16-byte segment at column 4 l; else the cells l + 32 q),
+// rows of C > 128 in rounds of 128 columns. Measured on the H100: a warp
+// an entry beat two or four entries a warp loaded together, and blocks of
+// 4 warps suit rows of few sectors (flat, (2, 4), (4, 4)) while blocks of
+// 16 suit rows of a sector a segment ((8, 4) up, and scalar tiles).
+constexpr int kWlResident = 64;   // warps an SM the grid is sized for
+
+struct RowCells {
+  float z[4], e[4], p[4], zj[4], pj[4];
+  int t[4];
+};
+
 template <bool kVec>
-__global__ void __launch_bounds__(32 * kRowWarps)
+__device__ __forceinline__ void load_cells(
+    const float* __restrict__ zij, const float* __restrict__ eij,
+    const float* __restrict__ pij, const int* __restrict__ tij,
+    const Tiling& g, long long base, const float* __restrict__ zj_row,
+    const float* __restrict__ pj_row, int cb, int lane, RowCells& x) {
+  if constexpr (kVec) {
+    const int c = cb + 4 * lane;
+    if (c < g.C) {
+      const long long i = base + col_off(g, c);
+      const float4 z = *reinterpret_cast<const float4*>(zij + i);
+      const float4 e = *reinterpret_cast<const float4*>(eij + i);
+      const float4 p = *reinterpret_cast<const float4*>(pij + i);
+      const int4 t = *reinterpret_cast<const int4*>(tij + i);
+      const float4 zj = *reinterpret_cast<const float4*>(zj_row + c);
+      const float4 pj = *reinterpret_cast<const float4*>(pj_row + c);
+      x.z[0] = z.x; x.z[1] = z.y; x.z[2] = z.z; x.z[3] = z.w;
+      x.e[0] = e.x; x.e[1] = e.y; x.e[2] = e.z; x.e[3] = e.w;
+      x.p[0] = p.x; x.p[1] = p.y; x.p[2] = p.z; x.p[3] = p.w;
+      x.t[0] = t.x; x.t[1] = t.y; x.t[2] = t.z; x.t[3] = t.w;
+      x.zj[0] = zj.x; x.zj[1] = zj.y; x.zj[2] = zj.z; x.zj[3] = zj.w;
+      x.pj[0] = pj.x; x.pj[1] = pj.y; x.pj[2] = pj.z; x.pj[3] = pj.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = cb + lane + 32 * q;
+      if (c < g.C) {
+        const long long i = base + col_off(g, c);
+        x.z[q] = zij[i];
+        x.e[q] = eij[i];
+        x.p[q] = pij[i];
+        x.t[q] = tij[i];
+        x.zj[q] = zj_row[c];
+        x.pj[q] = pj_row[c];
+      }
+    }
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store_cells(
+    float* __restrict__ zij, float* __restrict__ eij, float* __restrict__ pij,
+    float* __restrict__ wij, int* __restrict__ tij, const Tiling& g,
+    long long base, int cb, int lane, const RowCells& x, float cnt,
+    float p_pre, int now, const Coeffs& k) {
+  float z1[4], e1[4], p1[4], w1[4];
+  if constexpr (kVec) {
+    const int c = cb + 4 * lane;
+    if (c < g.C) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        cell_math(x.z[q], x.e[q], x.p[q], (float)(now - x.t[q]),
+                  cnt * x.zj[q], p_pre, x.pj[q], k, z1[q], e1[q], p1[q],
+                  w1[q]);
+      const long long i = base + col_off(g, c);
+      *reinterpret_cast<float4*>(zij + i) = make_float4(z1[0], z1[1], z1[2], z1[3]);
+      *reinterpret_cast<float4*>(eij + i) = make_float4(e1[0], e1[1], e1[2], e1[3]);
+      *reinterpret_cast<float4*>(pij + i) = make_float4(p1[0], p1[1], p1[2], p1[3]);
+      *reinterpret_cast<float4*>(wij + i) = make_float4(w1[0], w1[1], w1[2], w1[3]);
+      *reinterpret_cast<int4*>(tij + i) = make_int4(now, now, now, now);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = cb + lane + 32 * q;
+      if (c < g.C) {
+        cell_math(x.z[q], x.e[q], x.p[q], (float)(now - x.t[q]),
+                  cnt * x.zj[q], p_pre, x.pj[q], k, z1[q], e1[q], p1[q],
+                  w1[q]);
+        const long long i = base + col_off(g, c);
+        zij[i] = z1[q];
+        eij[i] = e1[q];
+        pij[i] = p1[q];
+        wij[i] = w1[q];
+        tij[i] = now;
+      }
+    }
+  }
+}
+
+template <bool kVec, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
 worklist_row_kernel(float* __restrict__ zij, float* __restrict__ eij,
                     float* __restrict__ pij, float* __restrict__ wij,
-                    int* __restrict__ tij, const int* __restrict__ rows,
+                    int* __restrict__ tij, const int* __restrict__ g_row,
+                    const int* __restrict__ order,
                     const int* __restrict__ nv_p,
                     const int* __restrict__ now_p,
                     const float* __restrict__ counts,
                     const float* __restrict__ zj,
                     const float* __restrict__ p_i,
-                    const float* __restrict__ pj, int W, long long HR,
+                    const float* __restrict__ pj, int W, int A, long long HR,
                     Tiling g, Coeffs k) {
-  const int slot = blockIdx.x * kRowWarps + threadIdx.y;
-  if (slot >= W || slot >= *nv_p) return;
-  const int gr = rows[slot];
-  if (gr < 0 || gr >= HR) return;
-  const long long e_off = (long long)slot * g.C;
-  row_walk<kVec>(zij, eij, pij, wij, tij, g, row_off(g, gr / g.R, gr % g.R),
-                 zj + e_off, pj + e_off, counts[slot], p_i[slot], *now_p,
-                 threadIdx.x, k, nullptr);
+  const int G = gridDim.x * WARPS;
+  int i = blockIdx.x * WARPS + threadIdx.y;
+  if (i >= W) return;
+  const int lane = threadIdx.x;
+  // the valid count, the first slot and the clock in one round
+  const int nv = min(*nv_p, W);
+  int s = order[i];
+  const int now = *now_p;
+  if (i >= nv) return;
+  // the slot's row and scalars (a slot out of range writes nothing)
+  int gr = -1;
+  float cnt = 0.f, p_pre = 0.f;
+  if (s >= 0 && s < W) {
+    gr = g_row[s];
+    cnt = counts[s];
+    p_pre = p_i[s];
+  }
+  for (;;) {
+    const bool live = gr >= 0 && gr < HR;
+    long long base = 0;
+    const float* zj_row = zj;
+    const float* pj_row = pj;
+    RowCells x;
+    if (live) {
+      base = row_off(g, gr / g.R, gr % g.R);
+      const long long hj = (long long)(s / A) * g.C;
+      zj_row += hj;
+      pj_row += hj;
+      load_cells<kVec>(zij, eij, pij, tij, g, base, zj_row, pj_row, 0, lane,
+                       x);
+    }
+    // the next entry's slot, row and scalars load behind this row's cells
+    const int i_next = i + G;
+    int s_next = -1, gr_next = -1;
+    float cnt_next = 0.f, p_next = 0.f;
+    if (i_next < nv) {
+      s_next = order[i_next];
+      if (s_next >= 0 && s_next < W) {
+        gr_next = g_row[s_next];
+        cnt_next = counts[s_next];
+        p_next = p_i[s_next];
+      }
+    }
+    if (live) {
+      for (int cb = 0;;) {
+        store_cells<kVec>(zij, eij, pij, wij, tij, g, base, cb, lane, x, cnt,
+                          p_pre, now, k);
+        if ((cb += 128) >= g.C) break;
+        load_cells<kVec>(zij, eij, pij, tij, g, base, zj_row, pj_row, cb,
+                         lane, x);
+      }
+    }
+    if (i_next >= nv) return;
+    i = i_next;
+    s = s_next;
+    gr = gr_next;
+    cnt = cnt_next;
+    p_pre = p_next;
+  }
 }
 
 // Grid (row blocks, fired entries). Entry e rewrites column j of HCU h, one
@@ -336,6 +494,28 @@ dim3 cell_grid(long long n_cells) {
   return dim3((unsigned)((n_cells + kBlockThreads - 1) / kBlockThreads));
 }
 
+template <bool kVec, int WARPS>
+cudaError_t launch_worklist(float* zij, float* eij, float* pij, float* wij,
+                            int* tij, const int* g_row, const int* order,
+                            const int* nv, const int* now,
+                            const float* counts, const float* zj,
+                            const float* p_i, const float* pj, int W, int A,
+                            long long HR, const Tiling& g, const Coeffs& k,
+                            cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int blocks = (W + WARPS - 1) / WARPS;
+  const int cap = sms * (kWlResident / WARPS);
+  const int grid = blocks < cap ? blocks : cap;
+  worklist_row_kernel<kVec, WARPS><<<grid, dim3(32, WARPS), 0, stream>>>(
+          zij, eij, pij, wij, tij, g_row, order, nv, now, counts, zj, p_i,
+          pj, W, A, HR, g, k);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int bcpnn_fused_row_update(
@@ -360,20 +540,21 @@ extern "C" int bcpnn_fused_row_update(
 
 extern "C" int bcpnn_worklist_row_update(
     float* zij, float* eij, float* pij, float* wij, int* tij,
-    const int* rows, const int* nv, const int* now, const float* counts,
-    const float* zj, const float* p_i, const float* pj, int W, long long HR,
-    int R, int C, int xr, int xc, int Tr, int Tc, int vec, float inv_tau_z,
-    float inv_tau_e, float inv_tau_p, float c_ze, float c_ep, float c_zp,
-    float eps, float eps2, void* stream) {
+    const int* g_row, const int* order, const int* nv, const int* now,
+    const float* counts, const float* zj, const float* p_i, const float* pj,
+    int W, int A, long long HR, int R, int C, int xr, int xc, int Tr, int Tc,
+    int vec, float inv_tau_z, float inv_tau_e, float inv_tau_p, float c_ze,
+    float c_ep, float c_zp, float eps, float eps2, void* stream) {
   const Coeffs k{inv_tau_z, inv_tau_e, inv_tau_p, c_ze, c_ep, c_zp, eps, eps2};
   const Tiling g{R, C, xr, xc, Tr, Tc};
-  const dim3 block(32, kRowWarps);
-  const dim3 grid((W + kRowWarps - 1) / kRowWarps);
-  auto kernel = vec ? worklist_row_kernel<true> : worklist_row_kernel<false>;
-  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      zij, eij, pij, wij, tij, rows, nv, now, counts, zj, p_i, pj, W, HR, g,
-      k);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  // 16-byte segments of rows that share sectors (xr < 8): small blocks
+  auto launch = !vec ? launch_worklist<false, 16>
+                     : xr < 8 ? launch_worklist<true, 4>
+                              : launch_worklist<true, 16>;
+  return static_cast<int>(launch(zij, eij, pij, wij, tij, g_row, order, nv,
+                                 now, counts, zj, p_i, pj, W, A, HR, g, k,
+                                 s));
 }
 
 extern "C" int bcpnn_fused_col_update(

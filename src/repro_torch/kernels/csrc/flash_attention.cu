@@ -56,19 +56,45 @@
 //     exp is one MUFU.EX2 in float32; softcap with tanhf.
 //
 // flash_fwd_kernel (float32 on the CUDA cores: a tensor-core product would
-// be TF32 and miss float32 accuracy). Bound: 4 * hd FLOP per valid pair
-// over 67 TFLOP/s. Design: one block per (b, h, 64-row query tile), 8 warps
-// of 8 query rows each, the query tile in shared memory in float32; 32-key
-// K / V tiles staged synchronously in float32, K transposed with a padded
-// row (lane j reads key j with no bank conflict); lane j owns key j for
-// the logits, the softmax reduces over the warp with shuffles, and in PV
-// each lane owns head dims lane + 32 i and takes p_j from lane j.
-//
+// be TF32 and miss float32 accuracy). Bound on the H100: 4 * hd FLOP per
+// valid pair over the CUDA cores' 67 TFLOP/s; at the qwen2-1.5b prefill
+// that is ~220 FLOP per byte of q, k, v and o, far above the float32
+// ridge (~20), so the FMA pipe bounds it, and shared memory (128 bytes a
+// clock an SM, against 4 warp-wide FMAs a clock) is what starves it: the
+// first version issued 12 shared loads per 32 FMAs in Q K^T and a shuffle
+// per 4 FMAs in P V. Design:
+// FlashAttention-2's loop with both products as register-blocked SGEMM
+// micro-tiles:
+//   * one block of 8 warps per (b, h, 64-row query tile), the heaviest
+//     (last) tiles of every head first; a warp owns 8 query rows, two a
+//     lane, so a row's max and sum reduce over 8 lanes (3 shuffles) and
+//     the sum stays a per-lane part until the end;
+//   * Q (64 rows) and 32-key K / V tiles sit in shared memory in float32,
+//     each row padded by 4 floats, so the 8 K rows or 4 Q rows a warp
+//     reads at once fall in distinct banks (one 128-byte wavefront);
+//   * S = Q K^T: each lane a 2 x 4 tile (2 rows, 4 keys) from float4
+//     loads along the head dims, 32 FMAs per 6 loads;
+//   * P (64 x 32 float32) goes to shared memory once a tile; P V: each
+//     lane a 2-row x hd/8-dim tile of the accumulator in registers from
+//     float4 loads of P and V, 128 FMAs per 18 loads at hd 128, no
+//     shuffle per key;
+//   * K / V tiles arrive by cp.async (16-byte copies where every row is
+//     16-byte aligned, else 4-byte) in a two-stage ring: tile i + 1 loads
+//     while tile i is multiplied, two barriers a tile (bf16 inputs are
+//     widened by the threads instead);
+//   * hd is padded to 64, 128 or 256 in shared memory (zero-filled);
+//     at hd <= 128, 108 KB of shared memory and <= 128 registers a thread
+//     let two blocks (16 warps) share an SM; hd 256 takes 204 KB, one;
+//   * expf and IEEE division in float32, as the plain version computes.
+
 // Plain C interface (loaded with ctypes): launches on the given stream and
 // returns the cudaError_t of the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 // Element strides of (batch, sequence, head); the last dim is contiguous.
 struct FlashArgs {
@@ -424,168 +450,297 @@ cudaError_t dispatch_mma(const FlashArgs& a, cudaStream_t s) {
 // ---------------------------------------------------------------------------
 // flash_fwd_kernel: float32 on the CUDA cores
 
-constexpr int kBQ = 64;                 // query rows per block
-constexpr int kWarps = 8;
-constexpr int kRows = kBQ / kWarps;     // query rows per warp
-constexpr int kBK = 32;                 // keys per tile, one per lane
-constexpr int kKtStride = kBK + 1;      // padded row of the transposed K tile
+constexpr int kThreads = 256;   // 8 warps
+constexpr int kBQ = 64;         // query rows a block
+constexpr int kBK = 32;         // keys a K / V tile
+constexpr int kPad = 4;         // floats of padding at the end of a shared row
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// blocks an SM the registers and shared memory are sized for: two up to
+// hd 128 (108 KB of shared memory, 128 registers), one at hd 256 (204 KB)
+template <int HDP>
+constexpr int fwd_min_blocks() { return HDP <= 128 ? 2 : 1; }
+
+// Q [kBQ], K [2][kBK] and V [2][kBK] rows of HDP + kPad floats, then
+// P [kBQ][kBK + kPad] and two floats a query row
+template <int HDP>
+constexpr size_t fwd_smem() {
+  return sizeof(float) * ((size_t)(kBQ + 4 * kBK) * (HDP + kPad) +
+                          (size_t)kBQ * (kBK + kPad + 2));
 }
+
+// 4 bytes global -> shared; zero-filled (nothing read) when !in
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
+// rows [0, ROWS) of a (rows, hd) slice with row stride `stride` into a
+// [ROWS][HDP + kPad] float tile, head dims at or past hd zero. float: by
+// cp.async, 16 bytes a copy where every row is 16-byte aligned (`vec`),
+// else 4; bfloat16: loaded, widened and stored by the threads.
+template <typename T, int HDP, int ROWS>
+__device__ __forceinline__ void stage(float* dst, const T* src,
+                                      long long stride, int hd, int tid,
+                                      bool vec) {
+  constexpr int LD = HDP + kPad;
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec) {
+      constexpr int C = HDP / 4, N = ROWS * C;
+#pragma unroll
+      for (int it = 0; it < N / kThreads; ++it) {
+        const int i = tid + it * kThreads, r = i / C, c = (i % C) * 4;
+        const bool in = c < hd;
+        cp_async16(dst + r * LD + c, src + r * stride + (in ? c : 0), in);
+      }
+      return;
+    }
+  }
+  constexpr int N = ROWS * HDP;
+#pragma unroll 4
+  for (int it = 0; it < N / kThreads; ++it) {
+    const int i = tid + it * kThreads, r = i / HDP, d = i % HDP;
+    const bool in = d < hd;
+    if constexpr (std::is_same<T, float>::value) {
+      cp_async4(dst + r * LD + d, src + r * stride + (in ? d : 0), in);
+    } else {
+      dst[r * LD + d] = in ? __bfloat162float(src[r * stride + d]) : 0.f;
+    }
+  }
 }
 
-size_t smem_bytes(int hd) {
-  return sizeof(float) * (size_t)hd * (kBQ + kKtStride + kBK);
-}
-
-// NV = head dims per lane: hd <= 32 * NV, hd % 4 == 0.
-template <typename T, int NV>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_fwd_kernel(const FlashArgs a) {
-  extern __shared__ float smem[];
-  const int hd = a.hd;
-  float* sQ = smem;                      // [kBQ][hd]
-  float* sKt = sQ + kBQ * hd;            // [hd][kKtStride]
-  float* sV = sKt + hd * kKtStride;      // [kBK][hd]
+// HDP: hd rounded up to 64, 128 or 256 (the padded dims are zero in
+// shared memory and add nothing). The two products map threads apart:
+//   S: lane l of warp w owns query rows r0 and r0 + 1, r0 = 8 w + 2 (l / 8),
+//      and the keys c + 8 j of each tile, c = l % 8: a row lies on 8 lanes
+//      of one warp, so its max and sum reduce over 3 shuffles;
+//   P V: warp w owns rows 32 (w % 2) + [0, 32) and head dims HDP / 4 (w / 2)
+//      + [0, HDP / 4); lane l the rows 32 (w % 2) + l / 4 + 8 i (i < 4) and
+//      the dims 4 (l % 4) + 16 q (q < HDP / 64) of them, so a warp's float4
+//      loads of P hit 8 consecutive rows and of V 64 contiguous bytes.
+// Each row's rescale factor and final sum pass between the two through
+// shared memory.
+template <typename T, int HDP>
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks<HDP>())
+flash_fwd_kernel(const FlashArgs a, const bool vec) {
+  constexpr int LD = HDP + kPad, PLD = kBK + kPad, NQ = HDP / 64;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                 // [kBQ][LD]
+  float* sK = sQ + kBQ * LD;        // [2][kBK][LD]
+  float* sV = sK + 2 * kBK * LD;    // [2][kBK][LD]
+  float* sP = sV + 2 * kBK * LD;    // [kBQ][PLD]
+  float* sCorr = sP + kBQ * PLD;    // [kBQ] this tile's rescale of a row
+  float* sL = sCorr + kBQ;          // [kBQ] a row's softmax sum
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const int r0 = 8 * warp + 2 * (lane >> 3);      // S rows r0, r0 + 1
+  const int c = lane & 7;                         // S keys c + 8 j
+  const int pr = 32 * (warp & 1) + (lane >> 2);   // P V rows pr + 8 i
+  const int pd = HDP / 4 * (warp >> 1) + 4 * (lane & 3);   // dims pd + 16 q
+  // x: (b, h); y: query tiles, the heaviest (last) first for every head
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
   const int kvh = h / (a.H / a.Kv);
-  // the heaviest causal tiles (the last ones) start first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
   const T* qg = static_cast<const T*>(a.q) + b * a.q_sb + q0 * a.q_ss +
                 h * a.q_sh;
   const T* kg = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const T* vg = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  T* og = static_cast<T*>(a.o) + b * a.o_sb + q0 * a.o_ss + h * a.o_sh;
-
-  for (int i = tid; i < kBQ * hd; i += kWarps * 32) {
-    const int r = i / hd, d = i - r * hd;
-    sQ[i] = to_f(qg[r * a.q_ss + d]);
-  }
 
   int t_begin, t_end;
   key_range(a, q0, kBQ, kBK, &t_begin, &t_end);
 
-  const int r0 = warp * kRows;
-  float m[kRows], l[kRows], acc[kRows][NV];
+  stage<T, HDP, kBQ>(sQ, qg, a.q_ss, a.hd, tid, vec);
+  if (t_begin < t_end) {
+    stage<T, HDP, kBK>(sK, kg + t_begin * a.k_ss, a.k_ss, a.hd, tid, vec);
+    stage<T, HDP, kBK>(sV, vg + t_begin * a.v_ss, a.v_ss, a.hd, tid, vec);
+  }
+  cp_async_commit();
+
+  float acc[4][NQ][4];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int i = 0; i < NV; ++i) acc[r][i] = 0.f;
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][q][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};   // this lane's part of the row sums
+
+  int st = 0;
+  for (int t0 = t_begin; t0 < t_end; t0 += kBK, st ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();   // tile t0 is in; the other stage and sP are free
+    if (t0 + kBK < t_end) {   // the next tile loads while this one is used
+      stage<T, HDP, kBK>(sK + (st ^ 1) * kBK * LD, kg + (t0 + kBK) * a.k_ss,
+                         a.k_ss, a.hd, tid, vec);
+      stage<T, HDP, kBK>(sV + (st ^ 1) * kBK * LD, vg + (t0 + kBK) * a.v_ss,
+                         a.v_ss, a.hd, tid, vec);
+    }
+    cp_async_commit();
+    const float* cK = sK + st * kBK * LD;
+    const float* cV = sV + st * kBK * LD;
+
+    // S = Q K^T: a 2 x 4 register tile from float4 loads along the head
+    // dims; a warp's loads hit 4 Q rows and 8 consecutive K rows, each
+    // one 128-byte wavefront
+    float s[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll
+    for (int d = 0; d < HDP; d += 4) {
+      float4 q[2], k[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) q[i] = ld4(sQ + (r0 + i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) k[j] = ld4(cK + (c + 8 * j) * LD + d);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(q[i].x, k[j].x, s[i][j]);
+          s[i][j] = fmaf(q[i].y, k[j].y, s[i][j]);
+          s[i][j] = fmaf(q[i].z, k[j].z, s[i][j]);
+          s[i][j] = fmaf(q[i].w, k[j].w, s[i][j]);
+        }
+    }
+
+    // scale, softcap, mask (evaluated only on tiles that cross a mask
+    // boundary); the online softmax in float32 with expf; P to shared
+    const bool full = t0 + kBK <= a.kv_len &&
+                      (!a.causal || t0 + kBK - 1 <= q0) &&
+                      (!a.has_window || q0 + kBQ - 1 - t0 < a.window);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x = s[i][j] * a.scale;
+        if (a.softcap != 0.f) x = tanhf(x / a.softcap) * a.softcap;
+        if (!full && !key_valid(a, q0 + r0 + i, t0 + c + 8 * j)) x = kNegInf;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+      const float corr = expf(m[i] - mx);
+      m[i] = mx;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - mx);
+        rs += p;
+        sP[(r0 + i) * PLD + c + 8 * j] = p;
+      }
+      l[i] = l[i] * corr + rs;
+      if (c == 0) sCorr[r0 + i] = corr;
+    }
+    __syncthreads();   // P and the rescale factors are complete
+
+    // acc = acc * corr + P V: a 4-row x 4 NQ-dim register tile; per 4
+    // keys, 4 float4 loads of P and 4 NQ of V for 64 NQ FMAs, no shuffle
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float corr = sCorr[pr + 8 * i];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][q][e] *= corr;
+    }
+#pragma unroll
+    for (int j = 0; j < kBK; j += 4) {
+      float4 p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = ld4(sP + (pr + 8 * i) * PLD + j);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const float4 v = ld4(cV + (j + jj) * LD + pd + 16 * q);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float pj = jj == 0 ? p[i].x : jj == 1 ? p[i].y
+                             : jj == 2 ? p[i].z : p[i].w;
+            acc[i][q][0] = fmaf(pj, v.x, acc[i][q][0]);
+            acc[i][q][1] = fmaf(pj, v.y, acc[i][q][1]);
+            acc[i][q][2] = fmaf(pj, v.z, acc[i][q][2]);
+            acc[i][q][3] = fmaf(pj, v.w, acc[i][q][3]);
+          }
+        }
+      }
+    }
   }
 
-  for (int t0 = t_begin; t0 < t_end; t0 += kBK) {
-    __syncthreads();  // the previous tile is consumed (and sQ is loaded)
-    for (int i = tid; i < kBK * hd; i += kWarps * 32) {
-      const int j = i / hd, d = i - j * hd;
-      sKt[d * kKtStride + j] = to_f(kg[(t0 + j) * a.k_ss + d]);
-      sV[i] = to_f(vg[(t0 + j) * a.v_ss + d]);
-    }
-    __syncthreads();
-
-    // logits of the warp's rows against key t0 + lane
-    float s[kRows];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-    for (int d = 0; d < hd; d += 4) {
-      const float k0 = sKt[(d + 0) * kKtStride + lane];
-      const float k1 = sKt[(d + 1) * kKtStride + lane];
-      const float k2 = sKt[(d + 2) * kKtStride + lane];
-      const float k3 = sKt[(d + 3) * kKtStride + lane];
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(sQ + (r0 + r) * hd + d);
-        s[r] += qv.x * k0 + qv.y * k1 + qv.z * k2 + qv.w * k3;
-      }
-    }
-
-    const int key = t0 + lane;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qp = q0 + r0 + r;
-      float x = s[r] * a.scale;
-      if (a.softcap != 0.f) x = tanhf(x / a.softcap) * a.softcap;
-      x = key_valid(a, qp, key) ? x : kNegInf;
-      const float m_new = fmaxf(m[r], warp_max(x));
-      const float p = expf(x - m_new);
-      const float corr = expf(m[r] - m_new);
-      l[r] = l[r] * corr + warp_sum(p);
-#pragma unroll
-      for (int i = 0; i < NV; ++i) acc[r][i] *= corr;
-      m[r] = m_new;
-      s[r] = p;
-    }
-
-    // acc[r][d] += sum_j p[r][j] * v[j][d]
-    for (int j = 0; j < kBK; ++j) {
-      float vv[NV];
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const int d = lane + 32 * i;
-        vv[i] = d < hd ? sV[j * hd + d] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float pj = __shfl_sync(kFull, s[r], j);
-#pragma unroll
-        for (int i = 0; i < NV; ++i) acc[r][i] += pj * vv[i];
-      }
-    }
+    for (int o = 1; o < 8; o <<= 1) li += __shfl_xor_sync(kFull, li, o);
+    if (c == 0) sL[r0 + i] = li;
   }
-
+  __syncthreads();
+  T* og = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const float den = fmaxf(l[r], 1e-30f);
-    T* row = og + (r0 + r) * a.o_ss;
+  for (int i = 0; i < 4; ++i) {
+    const float den = fmaxf(sL[pr + 8 * i], 1e-30f);
+    T* row = og + (q0 + pr + 8 * i) * a.o_ss;
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int d = lane + 32 * i;
-      if (d < hd) store(row + d, acc[r][i] / den);
+    for (int q = 0; q < NQ; ++q) {
+      const int d = pd + 16 * q;
+      if (d < a.hd) {   // hd % 4 == 0: a group of 4 dims is all in or out
+#pragma unroll
+        for (int e = 0; e < 4; ++e) store(row + d + e, acc[i][q][e] / den);
+      }
     }
   }
 }
 
-template <typename T, int NV>
+// every row of a (B, S, heads, hd) view starts 16-byte aligned: the base
+// and each stride of a dim longer than one (in floats) a multiple of 4
+bool rows_aligned(const void* p, long long sb, long long ss, long long sh,
+                  int B, int S, int heads) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (B == 1 || sb % 4 == 0) &&
+         (S == 1 || ss % 4 == 0) && (heads == 1 || sh % 4 == 0);
+}
+
+template <typename T, int HDP>
 cudaError_t launch_fwd(const FlashArgs& a, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, NV>;
-  const size_t smem = smem_bytes(a.hd);
+  auto kern = flash_fwd_kernel<T, HDP>;
+  const size_t smem = fwd_smem<HDP>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)(a.Sq / kBQ), (unsigned)(a.B * a.H));
-  kern<<<grid, kWarps * 32, smem, stream>>>(a);
+  const bool vec = rows_aligned(a.q, a.q_sb, a.q_ss, a.q_sh, a.B, a.Sq, a.H) &&
+                   rows_aligned(a.k, a.k_sb, a.k_ss, a.k_sh, a.B, a.Skv, a.Kv) &&
+                   rows_aligned(a.v, a.v_sb, a.v_ss, a.v_sh, a.B, a.Skv, a.Kv);
+  dim3 grid((unsigned)(a.B * a.H), (unsigned)(a.Sq / kBQ));
+  kern<<<grid, kThreads, smem, stream>>>(a, vec);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_fwd(const FlashArgs& a, cudaStream_t s) {
-  if (a.hd <= 32) return launch_fwd<T, 1>(a, s);
-  if (a.hd <= 64) return launch_fwd<T, 2>(a, s);
-  if (a.hd <= 128) return launch_fwd<T, 4>(a, s);
-  return launch_fwd<T, 8>(a, s);
+  if (a.hd <= 64) return launch_fwd<T, 64>(a, s);
+  if (a.hd <= 128) return launch_fwd<T, 128>(a, s);
+  return launch_fwd<T, 256>(a, s);
 }
 
 }  // namespace
 
 // a: device pointers, strides and sizes; Sq % 64 == 0, Skv % 64 == 0,
-// hd <= 256, B * H <= 65535, H % Kv == 0 (the wrapper checks). mma != 0
+// hd <= 256, Sq / 64 <= 65535, H % Kv == 0 (the wrapper checks). mma != 0
 // takes flash_mma_kernel (bf16, hd % 16 == 0, 16-byte aligned rows), else
 // flash_fwd_kernel (hd % 4 == 0). softcap 0 means none.
 extern "C" int flash_attention_fwd(const FlashArgs* a, int mma, int is_bf16,

@@ -22,9 +22,11 @@ does.
 
 Two kernels, chosen by dtype and head dim alone (`route`):
 ``flash_mma_kernel`` (bf16 tensor cores) for bfloat16 with hd a multiple
-of 16, ``flash_fwd_kernel`` (float32 on the CUDA cores) for float32 and
-for bfloat16 with another hd. The wrapper counts its launches in
-`launches["flash_attention"]` and, by kernel, in `routes`.
+of 16, ``flash_fwd_kernel`` (float32 on the CUDA cores: register-blocked
+float32 products, cp.async double-buffered K / V) for float32 and for
+bfloat16 with another hd. Both launch a (B * H, Sq / 64) grid. The
+wrapper counts its launches in `launches["flash_attention"]` and, by
+kernel, in `routes`.
 """
 from __future__ import annotations
 
@@ -172,9 +174,13 @@ def flash_attention_kernel(q, k, v, *, scale: float, causal: bool = True,
     float32 accuracy, the heaviest query tiles of every head launched
     first; at the prefill shapes the tensor cores bound it. float32
     inputs, and bfloat16 with another hd, take `flash_fwd_kernel`:
-    float32 on the CUDA cores, bound by their 67 TFLOP/s. Both skip key
-    tiles outside a query tile's reach where that cannot change the
-    result (module docstring); the source note has the designs.
+    float32 on the CUDA cores, bound by their 67 TFLOP/s;
+    FlashAttention-2 with both products as register-blocked micro-tiles
+    (a lane holds 2 x 4 logits and a 2-row slice of the output, fed by
+    float4 shared loads), P staged once a tile in shared memory, 32-key
+    K / V tiles by cp.async in a two-stage ring. Both skip key tiles
+    outside a query tile's reach where that cannot change the result
+    (module docstring); the source note has the designs.
 
     q (B, Sq, H, hd), k / v (B, Skv, Kv, hd), or all (BH, S, hd): CUDA
     tensors of one dtype, each any view with a contiguous last dim (the
@@ -229,8 +235,8 @@ def _launch(q, k, v, *, scale: float, causal: bool = True, window=None,
                 s % 8 for s, n in zip(_strides(t), t.shape) if n > 1)):
             raise ValueError(f"{name}: rows must be 16-byte aligned for the "
                              "bf16 kernel (strides multiples of 8)")
-    # the grid's y extent: the query tiles (mma), B * H (simt)
-    if (Sq // 64 if kind == "mma" else B * H) > 65535:
+    # both kernels launch a (B * H, Sq / 64) grid: y at most 65535
+    if Sq // 64 > 65535 or B * H > 2**31 - 1:
         raise ValueError(f"grid too large for B {B}, H {H}, Sq {Sq}")
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     if out.numel():

@@ -72,20 +72,24 @@ def fused_col_update(zij, eij, pij, wij, tij, zi, ei, pi, ti, pj, h_idx,
        layout=layout)
 
 
-def worklist_row_update(zij, eij, pij, wij, tij, rows, nv, now, counts, zj,
-                        p_i, pj, coeffs: DecayCoeffs, eps: float,
+def worklist_row_update(zij, eij, pij, wij, tij, g_row, order, nv, now,
+                        counts, zj, p_i, pj, coeffs: DecayCoeffs, eps: float,
                         layout=None):
-    """Unfused worklist row update over the stored planes.
+    """Unfused worklist row update over the stored planes, read through
+    the compaction.
 
-    rows (W,) int32: global flat row indices compacted valid-first; entries
-    at or past ``nv`` (an int32 tensor) are ignored whatever they hold.
-    counts / p_i (W,), zj / pj (W, C): per-entry operands. The five ij
-    planes (stored in ``layout``, None: flat) are rewritten in place; the
-    i-vectors are the caller's.
+    g_row (W,) int32: SLOT-ordered global flat row indices, A = W / H
+    slots per HCU, the H*R sentinel on padding slots; order (W,) int32:
+    the compaction, valid slots first (`worklist.build_worklist`); entries
+    at or past ``nv`` (an int32 tensor) are ignored whatever ``order``
+    holds there. counts / p_i (W,): per-slot operands; zj / pj (H, C): the
+    j-vectors, read at HCU slot // A. The five ij planes (stored in
+    ``layout``, None: flat) are rewritten in place; the i-vectors are the
+    caller's.
     """
     fn = _dispatch(BU.worklist_row_update_plain,
                    BU.worklist_row_update_kernel, zij.device)
-    fn(zij, eij, pij, wij, tij, rows, nv.reshape(1).to(torch.int32),
+    fn(zij, eij, pij, wij, tij, g_row, order, nv.reshape(1).to(torch.int32),
        _now(now, zij.device), counts, zj, p_i, pj, coeffs, eps,
        layout=layout)
 

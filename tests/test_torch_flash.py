@@ -14,7 +14,8 @@
   `repro.models.layers._sdpa_flash` does.
 * On a CUDA device (skipped without one), the CUDA kernels against the
   plain version on the same inputs, every case in bf16 and in float32,
-  with the launch count and the wrapper's record of the kernel it took.
+  with the launch count and the wrapper's record of the kernel it took;
+  and the float32 kernel at the edges of its tiling (`FWD_EDGES`).
 * The device decides the path: a non-CPU tensor never reaches the plain
   version.
 
@@ -263,3 +264,61 @@ def test_cuda_flash_kernel_matches_plain(name, dtype):
     rtol, atol = KERNEL_TOL[dtype]
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=rtol, atol=atol)
+
+
+# the float32 kernel's edges (the CUDA-core route): name -> (B, H, Kv, Sq,
+# Skv, hd, dtype, flash kwargs, misaligned). Its key tiles are 32 wide and
+# its head dims padded to 64, 128 or 256; a misaligned case reads q, k and
+# v as views one float off 16-byte alignment (the 4-byte copies)
+FWD_EDGES = {
+    "kvlen_in_tile": (2, 4, 2, 128, 256, 128, "float32",
+                      dict(causal=True, kv_len=200), False),
+    "window_in_tile": (1, 4, 1, 256, 256, 64, "float32",
+                       dict(causal=True, window=40), False),
+    "hd4": (1, 2, 1, 128, 128, 4, "float32", dict(causal=True), False),
+    "hd40": (2, 2, 2, 128, 256, 40, "float32",
+             dict(causal=False, kv_len=170), False),
+    "hd112": (1, 6, 2, 128, 128, 112, "float32", dict(causal=True), False),
+    "hd256": (1, 2, 1, 256, 384, 256, "float32",
+              dict(causal=True, kv_len=300), False),
+    "softcap": (1, 4, 2, 256, 256, 128, "float32",
+                dict(causal=True, softcap=50.0, window=100), False),
+    "bf16_hd40": (2, 4, 2, 128, 256, 40, "bfloat16",
+                  dict(causal=True, kv_len=150), False),
+    "tile_without_keys": (1, 2, 1, 256, 256, 64, "float32",
+                          dict(causal=True, window=8, kv_len=64), False),
+    "misaligned": (2, 4, 2, 128, 256, 64, "float32",
+                   dict(causal=True, kv_len=220), True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FWD_EDGES))
+def test_cuda_flash_fwd_kernel_edges_match_plain(name):
+    """`flash_fwd_kernel` against the plain version where its tiling has
+    an edge: kv_len and a window boundary inside a 32-key tile, head dims
+    4, 40, 112 (padded) and 256, a softcap, bf16 at hd 40, a 64-row query
+    tile whose rows have no valid key (they average v), and views off
+    16-byte alignment."""
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, Kv, Sq, Skv, hd, dtype, kw, misaligned = FWD_EDGES[name]
+    rs = np.random.default_rng(sum(map(ord, name)))
+    dt = getattr(torch, dtype)
+    off = int(misaligned)
+
+    def make(S, heads):
+        a = rs.normal(size=(B, S, heads, hd + off)).astype(np.float32)
+        return torch.from_numpy(a).to(device=dev, dtype=dt)[..., off:]
+    q, k, v = make(Sq, H), make(Skv, Kv), make(Skv, Kv)
+    assert (q.data_ptr() % 16 != 0) == misaligned
+    kw = dict(kw, scale=hd ** -0.5)
+    before = dict(FA.routes)
+    got = FA.flash_attention_kernel(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.routes == {r: n + (r == "simt") for r, n in before.items()}
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    rtol, atol = KERNEL_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)

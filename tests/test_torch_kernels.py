@@ -12,7 +12,11 @@
   themselves; the JAX side gathers them per slot / entry and applies the
   column prologue's i-vector decay (`hcu.ivec_decay`) before its kernel.
   The three worklist entries also run on planes stored column-blocked
-  ((8, 4) and (7, 5) tiles), compared after unpacking.
+  ((8, 4) and (7, 5) tiles), compared after unpacking. The unfused entry
+  takes the slot-ordered worklist, its compaction ``order`` and ``nv``
+  and the (H, C) j-vectors; the JAX side gets the per-entry rows and
+  operands its engine gathers from them. `engine.worklist_lazy_rows`
+  unfused equals fused bit for bit.
 * On a CUDA device (skipped without one), each CUDA kernel against its
   plain version on the same inputs, flat and blocked.
 * The device decides the path: a non-CPU tensor never reaches the plain
@@ -95,22 +99,47 @@ def col_inputs(seed, n, R, C, K=4):
 
 
 def worklist_inputs(seed, n, R, C, A):
-    """Unfused worklist: W = n*A entries compacted valid-first, nv of them
-    live with unique rows (the plane's last row among them); the entries
-    past nv hold in-range rows too, which must not be written."""
+    """Unfused worklist, read through the compaction: the slot-ordered
+    rows of `row_inputs` (g_row, the H*R sentinel on padding slots) and an
+    ``order`` whose first nv entries are the valid slots shuffled (not the
+    stable order) plus one padding slot, which must write nothing; the
+    entries past nv name random slots, live ones among them, which must
+    not be written again. counts / p_i per slot, zj / pj the (n, C)
+    j-vectors."""
     rs = np.random.default_rng(seed)
     HR, W = n * R, n * A
-    nv = W // 3
-    rows = rs.integers(0, HR, W).astype(np.int32)
-    rows[:nv] = np.sort(rs.choice(HR - 1, size=nv, replace=False))
-    rows[nv - 1] = HR - 1
+    g_row = row_inputs(seed, n, R, C, A)["rows"]
+    valid = np.nonzero(g_row < HR)[0]
+    pad = np.nonzero(g_row >= HR)[0][:1]
+    live = rs.permutation(np.concatenate([valid, pad]))
+    nv = live.size
+    order = rs.integers(0, W, W).astype(np.int32)
+    order[:nv] = live
     d = _planes(rs, n, R, C)
-    d.update(rows=rows, nv=np.array([nv], np.int32),
+    d.update(g_row=g_row, order=order, nv=np.array([nv], np.int32),
              counts=rs.integers(1, 4, W).astype(np.float32),
-             zj=rs.uniform(0, 2, (W, C)).astype(np.float32),
+             zj=rs.uniform(0, 2, (n, C)).astype(np.float32),
              p_i=rs.uniform(1e-4, 0.1, W).astype(np.float32),
-             pj=rs.uniform(1e-4, 0.1, (W, C)).astype(np.float32))
+             pj=rs.uniform(1e-4, 0.1, (n, C)).astype(np.float32))
     return d
+
+
+def worklist_gathered(d):
+    """What the JAX engine hands its worklist kernel for the same entries:
+    the planes, and per entry i its row g_row[order[i]] (past nv clipped
+    into range: in-range junk the kernel must ignore), nv, and the slot's
+    counts, p_i and its HCU's zj / pj rows gathered."""
+    HR = d["zij"].shape[0]
+    W, n = d["order"].shape[0], d["zj"].shape[0]
+    order, nv = d["order"], int(d["nv"][0])
+    rows = d["g_row"][order]
+    rows[nv:] = np.minimum(rows[nv:], HR - 1)
+    h_of = order // (W // n)
+    out = {f: d[f] for f in COL_PLANES}
+    out.update(rows=rows.astype(np.int32), nv=d["nv"],
+               counts=d["counts"][order], zj=d["zj"][h_of],
+               p_i=d["p_i"][order], pj=d["pj"][h_of])
+    return out
 
 
 def block_inputs(seed, lead, C):
@@ -236,16 +265,18 @@ for f, v in zip(COL, outs):
 for f in COL:
     OUT[f"rcol_{f}"] = a[f]
 
-# unfused worklist: the Pallas kernel (small) and the cell oracle (rodent)
-a = arg("swl")
+# unfused worklist: the Pallas kernel (small) and the cell oracle (rodent),
+# on the per-entry arrays the JAX engine gathers
+a = arg("swlj")
 flats = ops.worklist_row_update(
     *(a[f] for f in COL), rows=a["rows"], nv=a["nv"][0], now=NOW,
     counts=a["counts"], zj=a["zj"], p_i=a["p_i"], pj=a["pj"], coeffs=k,
     eps=eps, backend="pallas_interpret")
 for f, v in zip(COL, flats):
     OUT[f"swl_{f}"] = v
-a = {n: np.array(v) for n, v in arg("rwl").items()}
-live = np.arange(a["rows"].shape[0]) < a["nv"][0]
+a = {n: np.array(v) for n, v in arg("rwlj").items()}
+live = (np.arange(a["rows"].shape[0]) < a["nv"][0]) & (
+    a["rows"] < a["zij"].shape[0])
 r = a["rows"][live]
 z1, e1, p1, w1, t1 = jax.vmap(
     lambda z, e, p, t, c, zj, pi, pj: bcpnn_ref.row_update_ref(
@@ -293,6 +324,8 @@ def cases():
            "rcb": colblock_inputs(16, RODENT["R"], K=3)}
     flat = {"now": np.int32(NOW), "small_n": SMALL["n"], "small_R": SMALL["R"],
             "rodent_n": RODENT["n"], "rodent_R": RODENT["R"]}
+    for pre in ("swl", "rwl"):
+        ins[pre + "j"] = worklist_gathered(ins[pre])
     for pre, d in ins.items():
         flat.update(prefixed(d, pre))
     return ins, run_jax(_JAX_BODY, flat)
@@ -343,13 +376,14 @@ def run_worklist(d, device="cpu", fn=None, lay=None):
     p = BCPNNParams()
     now = torch.tensor(NOW, dtype=torch.int32, device=device)
     if fn is None:
-        ops.worklist_row_update(*(a[f] for f in COL_PLANES), a["rows"],
-                                a["nv"], now, a["counts"], a["zj"], a["p_i"],
-                                a["pj"], TH.coeffs_ij(p), p.eps, layout=lay)
+        ops.worklist_row_update(*(a[f] for f in COL_PLANES), a["g_row"],
+                                a["order"], a["nv"], now, a["counts"],
+                                a["zj"], a["p_i"], a["pj"], TH.coeffs_ij(p),
+                                p.eps, layout=lay)
     else:
-        fn(*(a[f] for f in COL_PLANES), a["rows"], a["nv"], now.reshape(1),
-           a["counts"], a["zj"], a["p_i"], a["pj"], TH.coeffs_ij(p), p.eps,
-           layout=lay)
+        fn(*(a[f] for f in COL_PLANES), a["g_row"], a["order"], a["nv"],
+           now.reshape(1), a["counts"], a["zj"], a["p_i"], a["pj"],
+           TH.coeffs_ij(p), p.eps, layout=lay)
     return _loaded(a, lay, COL_PLANES)
 
 
@@ -466,11 +500,50 @@ def test_worklist_entries_past_nv_write_nothing(cases):
     got = run_worklist(d)
     nv = int(d["nv"][0])
     touched = (got["tij"].numpy() != d["tij"]).any(axis=1)
-    untouched = np.setdiff1d(np.arange(d["zij"].shape[0]), d["rows"][:nv])
+    untouched = np.setdiff1d(np.arange(d["zij"].shape[0]),
+                             d["g_row"][d["order"][:nv]])
     assert not touched[untouched].any()
     for f in COL_PLANES:
         np.testing.assert_array_equal(got[f].numpy()[untouched],
                                       d[f][untouched], err_msg=f)
+
+
+@pytest.mark.parametrize("tile", [None] + TILES,
+                         ids=lambda t: "flat" if t is None else tile_id(t))
+def test_unfused_rows_equal_fused_rows_bit_for_bit(tile):
+    """`engine.worklist_lazy_rows(fused=False)` (the unfused entry, read
+    through the compaction) against fused=True on one random state of a
+    small network and a spike batch with duplicates and padding, flat and
+    blocked: every HCU leaf and the weight rows bit for bit, as the JAX
+    engine's docstring promises ("both give the same bits")."""
+    from repro_torch.core import engine as E
+    from repro_torch.core.layout import store_hcus
+    from repro_torch.core.params import test_scale
+    p = test_scale(4, 64, 16)
+    rs = np.random.default_rng(30)
+    rand = lambda t: torch.from_numpy(
+        rs.integers(0, NOW, t.shape).astype(np.int32)
+        if t.dtype == torch.int32
+        else rs.uniform(1e-4, 0.5, t.shape).astype(np.float32))
+    base = TH.HCUState(*(rand(t) for t in TH.init_hcu_batch(p, p.n_hcu,
+                                                            "cpu")))
+    lay = None if tile is None else _blocked(dict(R=p.rows, C=p.cols), tile)
+    base = store_hcus(base, lay)
+    rows = torch.from_numpy(rs.integers(0, p.rows + 1, (p.n_hcu, 12))
+                            .astype(np.int32))
+    rows[0, :4] = 5                          # duplicates merge into one slot
+    rows[-1] = p.rows                        # an HCU with no spike at all
+    now = torch.tensor(NOW, dtype=torch.int32)
+    out = {}
+    for fused in (True, False):
+        hc = TH.HCUState(*(t.clone() for t in base))
+        hc, w_rows, _ = E.worklist_lazy_rows(hc, rows, now, p, fused=fused,
+                                             layout=lay)
+        out[fused] = (*hc, w_rows)
+    for f, a, b in zip((*TH.HCUState._fields, "w_rows"), out[True],
+                       out[False]):
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+    assert not torch.equal(out[False][4], base.tij)   # rows were written
 
 
 def _cuda():
@@ -531,6 +604,34 @@ def test_cuda_worklist_kernels_on_blocked_planes_match_plain(kind, dims,
     assert BU.launches[kind] == before + 1
     want = run(d, dev, getattr(BU, f"{kind}_plain"), lay=lay)
     assert_outputs(got, {k: v.cpu().numpy() for k, v in want.items()}, names)
+
+
+# phase 3's tiles of chip_smoke.py, and rows of more than 128 cells
+WL_TILES = [None, (2, 4), (4, 4), (8, 4), (16, 4), (32, 4), (7, 5), (8, 128)]
+WIDE = dict(n=2, R=48, C=200, A=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", WL_TILES,
+                         ids=lambda t: "flat" if t is None else tile_id(t))
+@pytest.mark.parametrize("dims", [SMALL, RODENT, WIDE],
+                         ids=["small", "rodent", "wide"])
+def test_cuda_worklist_row_kernel_on_every_tile_matches_plain(dims, tile):
+    """The unfused row kernel, read through the compaction, bit for bit its
+    plain version on every tile phase 3 times (16-byte segments where a
+    row splits into whole 4-cell groups, single cells elsewhere), and on
+    rows of 200 cells (two rounds of 128 columns)."""
+    dev = _cuda()
+    n, R, C, A = (dims[k] for k in ("n", "R", "C", "A"))
+    lay = None if tile is None else _blocked(dims, tile)
+    d = worklist_inputs(23, n, R, C, A)
+    before = BU.launches["worklist_row_update"]
+    got = run_worklist(d, dev, BU.worklist_row_update_kernel, lay=lay)
+    torch.cuda.synchronize()
+    assert BU.launches["worklist_row_update"] == before + 1
+    want = run_worklist(d, dev, BU.worklist_row_update_plain, lay=lay)
+    for f in COL_PLANES:
+        assert torch.equal(got[f], want[f]), f
 
 
 @pytest.mark.cuda
