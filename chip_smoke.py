@@ -51,8 +51,9 @@ toolkit. Phases, in order; any failure exits non-zero:
                200 timed ticks), the same backend with the planes stored in
                phase 3's tile (fused_blocked), the unfused worklist backend
                (fused=False, fused_cols=False), the dense backend
-               (worklist=False), 100 timed ticks each, and the eager golden
-               model (eager=True), 20. Each path first runs through the
+               (worklist=False), OTHER_TICKS (50) timed ticks each, and
+               the eager golden model (eager=True), 20. Each path first
+               runs through the
                CUDA-graph driver (`Simulator.run`, chunk 128): warm-up ticks
                capture every chunk length the timed ticks replay, one call a
                capture (each first call timed, each graph's nodes counted),
@@ -79,7 +80,7 @@ toolkit. Phases, in order; any failure exits non-zero:
                and eager's fired histories must equal the fused path's over
                the same ticks.
                Merged mode (merged=True, the worklist backend in mode
-               "merged", 100 timed ticks) runs the same way twice: from the
+               "merged", OTHER_TICKS timed ticks) runs the same way twice: from the
                cold start (merged) and from a state whose rings each hold 8
                spike times before tick 0 (merged_warm: no bump applies, so
                every fire of a full ring takes the overflow flush). No
@@ -105,6 +106,32 @@ toolkit. Phases, in order; any failure exits non-zero:
                (H, R, C) layout at t=10) restores into a CUDA Simulator and
                continues as an uninterrupted run. The directory is removed
                afterwards.
+  5c. rodent — `Simulator(get_config("bcpnn-rodent"))`: the paper's rodent
+               cortex whole, 32,000 HCUs of R=1200 x C=70 (2.69e9 cells a
+               plane, 53.76 GB of planes), on the fused worklist kernels
+               (R*C = 84,000 > 65,536), flat. The memory allocated at the
+               phase's start is printed (earlier phases must have freed
+               theirs). First the fused row and column kernels against
+               their plain versions at R=1200, C=70 on a cut of
+               RODENT_CHECK_HCUS HCUs (the plain version's temporaries at
+               full size would not fit); then the init, whose allocation
+               must be `launch.dryrun.lower_bcpnn`'s count for one rank at
+               32,000 HCUs leaf by leaf, every difference listed (the
+               allocator's 512-byte blocks, the Simulator's key, the dry
+               run's input, which a run is passed); RODENT_MATCH ticks of
+               the per-tick loop, then after `reset()` the same ticks
+               through a graph: fired history and integer leaves bit for
+               bit (`ext_block`'s Poisson input, lambda 4, width 8);
+               RODENT_TICKS ticks through the graphs (chunks of 128, the
+               launch counters from 0 showing both fused kernels once a
+               captured tick), then two timed runs of RODENT_TICKS
+               (replays only, sync-debug "error"): host us/tick beside real
+               time (1000) and `launch.roofline`'s bound for the tick,
+               drops, peak GiB; a PROFILE_TICKS per-tick profile by phase
+               (row, WTA, column, fan-out, the rest glue); and both kernels
+               timed at the full 32,000 HCUs on the Simulator's planes
+               beside their function and 32-byte-sector bounds and
+               time_cuda's floor.
   6. flash   — the flash-attention kernels against their plain version on
                the card, on the model's layout: q (B, Sq, H, hd) and the KV
                cache (B, slots, Kv, hd) read in place. The qwen2-1.5b
@@ -310,12 +337,35 @@ toolkit. Phases, in order; any failure exits non-zero:
                    rtol MESH_LOSS_RTOL and grad norms within
                    MESH_GNORM_RTOL at every step, no kernel launched.
                    Prints ms a step and peak GiB by rank.
- 13. report  — one JSON line of the kernels (with each BCPNN kernel's
-               launches on the phase 8 paths, counted at capture, and on
-               the sharded paths of phase 9 under ``launches_by_path``;
-               flash's launches are the LM serving runs' of phases 6b, 7
-               and 10, by model under ``launches_by_path``, beside phase
-               11b's and 12's training runs, which launch none, and its
+               12a also holds `launch.dryrun.lower_cell`'s count of 11b's
+                   train state on the (1, 1) mesh (parameters, AdamW state,
+                   batch; meta tensors) against the card's allocation for
+                   the same state, and prints the step's roofline bound
+                   beside 11b's measured ms a step.
+               12c. qwen2-1.5b at full width (bf16, pallas_flash) serves
+                   one wave of 4 x 1024 tokens and 8 decode steps through
+                   `ServingEngine` on one device, then through
+                   `generate(..., mesh=)` on the 1-rank NCCL mesh
+                   (parameters and KV caches DTensors): tokens bit for
+                   bit, flash launched once a layer of the sharded prefill
+                   through `flash_mma_kernel` on local tensors.
+ 13. examples — examples/quickstart_torch.py, bcpnn_assoc_memory_torch.py,
+               serve_lm_torch.py (--attn pallas_flash --prompt-len 128) and
+               train_lm_torch.py (--steps 60) on CUDA, as subprocesses
+               started together: each ends in its OK line, and its launch
+               counters show the dense backend's block kernels (the BCPNN
+               examples), flash through `flash_mma_kernel` (serving), none
+               (training).
+ 14. report  — one JSON line of the kernels (with each BCPNN kernel's
+               launches on the phase 8 paths, counted at capture, on
+               the sharded paths of phase 9, on the rodent path (at
+               capture) and in the examples under ``launches_by_path``,
+               and the fused kernels' rodent-width times under
+               ``rodent``;
+               flash's launches are the LM serving runs' of phases 6b, 7,
+               10 and 12c and the serving example's, by model under
+               ``launches_by_path``, beside phase 11b's and 12's training
+               runs and the training example, which launch none, and its
                numbers at every phase 6 shape under ``by_shape``), then
                the last line {"ok": true, "device": {...}}.
 
@@ -343,7 +393,10 @@ OPS_PER_CELL = 33             # float32 ops of cell_math, transcendentals as one
 NOW = 100
 N_TIMED = 20
 TIMED_TICKS = 200         # timed ticks of the fused path
-OTHER_TICKS = 100         # timed ticks of the fused_blocked, unfused and dense paths
+# timed ticks of the fused_blocked, unfused, dense and merged paths: cut
+# from 100 to 50 for the script's time limit when the rodent phase came
+# (their device traces took ~110 s at 100)
+OTHER_TICKS = 50
 EAGER_TICKS = 20
 PROFILE_TICKS = 10
 PER_TICK_WARM, PER_TICK_TICKS = 4, 20   # the per-tick driver beside the graphs
@@ -498,6 +551,23 @@ def sector_bytes(p, tile, kind):
                                        line_bytes=SECTOR) * SECTOR
 
 
+def row_phase_bytes(nv, W, n, C, row):
+    """Bytes the fused row kernel moves: ``nv`` live of ``W`` slots over
+    ``n`` HCUs of C columns, ``row`` the bytes one access of a logical row
+    of one plane moves (C * 4 by the function, more in sectors): a live
+    slot's 9 plane accesses, its weight row and 4 vector cells; a
+    sentinel slot's zero weight row; the (H, C) j-vectors once; the slots'
+    six operands."""
+    return nv * (9 * row + C * 4 + 16) + (W - nv) * C * 4 + n * C * 8 + W * 24
+
+
+def col_phase_bytes(nf, K, R, col):
+    """Bytes the fused column kernel moves: ``nf`` fired of ``K``
+    entries, each R cells of 9 plane accesses (``col`` the bytes one
+    access of a logical column of one plane moves) and its i-vectors."""
+    return nf * (9 * col + R * 16 + 4) + K * 8
+
+
 def check_inplace(tag, kname, call, base, names, flush, time_plain):
     """A worklist kernel against its plain version on copies of the stored
     planes ``base`` (every stored cell compared, pad cells included), then
@@ -574,11 +644,10 @@ def phase_kernels(p, dev):
     # cell, vector and weight row once) and by the layout's 32-byte sectors
     # (`row` / `col`: one access of a logical row / column of one plane)
     def row_bytes(row):
-        return (nv * (9 * row + C * 4 + 16) + (W - nv) * C * 4 + n * C * 8
-                + W * 24)
+        return row_phase_bytes(nv, W, n, C, row)
 
     def col_bytes(col):
-        return nf * (9 * col + R * 16 + 4) + K * 8
+        return col_phase_bytes(nf, K, R, col)
 
     # the unfused kernel: a live entry's planes and its slot's order, row,
     # count and p_i; the j-vectors of the HCUs with a live entry; nv, now
@@ -1428,7 +1497,8 @@ PHASES = (("repro_torch.core.engine", "worklist_lazy_rows",
           ("repro_torch.core.engine", "worklist_merged_rows", ()),
           ("repro_torch.core.hcu", "periodic_update", ()),
           ("repro_torch.core.merged", "overflow_flush", ()),
-          ("repro_torch.core.worklist", "patch_cells", ()))
+          ("repro_torch.core.worklist", "patch_cells", ()),
+          ("repro_torch.core.network", "enqueue_spikes", ()))
 
 
 def profile_ticks(name, sim, ext, kernels):
@@ -2193,6 +2263,330 @@ def phase_families(dev, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 5c: the rodent-scale cortex, whole on the card
+# ---------------------------------------------------------------------------
+
+RODENT_TICKS = 200            # ticks of each run through the graphs
+RODENT_MATCH = 20             # per-tick ticks held against the graphs'
+RODENT_CHECK_HCUS = 256       # HCUs of the kernels' check against plain
+REAL_TIME_US = 1000.0         # one tick a simulated ms
+
+
+def ext_block(p, T, width=8, lam=4.0, seed=0):
+    """Poisson(lam) external input (T, H, width) int32: `ext_tensor`'s law
+    (counts capped at ``width``, rows uniform, the R sentinel on unused
+    slots) drawn in whole-array draws from numpy's Generator(seed), not its
+    per-HCU loop, which takes ~0.27 s a tick at 32,000 HCUs on a host
+    core. Another stream of the same law; every run of the phase reads
+    this one array."""
+    rng = np.random.default_rng(seed)
+    n = np.minimum(rng.poisson(lam, (T, p.n_hcu)), width)
+    rows = rng.integers(0, p.rows, (T, p.n_hcu, width), dtype=np.int32)
+    return np.where(np.arange(width) < n[..., None], rows,
+                    p.rows).astype(np.int32)
+
+
+def int_leaves(state):
+    """The integer leaves the per-tick and graph drivers must agree on bit
+    for bit: Tij, Ti, the delay queues, the time and the drop counters."""
+    return {"tij": state.hcus.tij, "ti": state.hcus.ti,
+            "delay_rows": state.delay_rows, "delay_count": state.delay_count,
+            "t": state.t, "drops_in": state.drops_in,
+            "drops_fire": state.drops_fire}
+
+
+def alloc_blocks(tensors):
+    """name -> (bytes the tensor's storage holds, the caching allocator's
+    block for it) for CUDA tensors, from `torch.cuda.memory_snapshot()`
+    (the active block at the storage's address). A block is the request
+    rounded up to 512 bytes, or, for a large one, the whole rest of its
+    segment where less than 1 MiB would be left over."""
+    import torch
+    blocks = {b["address"]: b["size"]
+              for seg in torch.cuda.memory_snapshot() for b in seg["blocks"]
+              if b["state"] == "active_allocated"}
+    return {name: (t.untyped_storage().nbytes(),
+                   blocks.get(t.untyped_storage().data_ptr()))
+            for name, t in tensors.items()}
+
+
+def alloc_check(what, want, tensors, allocated, beside=()):
+    """Bytes a build allocated against a dry run's count: ``want`` (name ->
+    bytes) the count, ``tensors`` (name -> tensor) what the build holds,
+    ``allocated`` memory_allocated's growth over the build; ``beside``
+    names the held tensors the count leaves out. Every tensor's storage
+    must hold the count's bytes, and the growth must be the allocator's
+    blocks of the held tensors (`alloc_blocks`); every difference is
+    listed, tensor by tensor."""
+    got = alloc_blocks(tensors)
+    diffs = []
+    for name, (nb, blk) in got.items():
+        if name in beside:
+            diffs.append(f"{name}: {nb} bytes held beside the counted "
+                         f"leaves, in a {blk}-byte block")
+        elif nb != want.get(name):
+            diffs.append(f"{name}: holds {nb} bytes, the dry run counts "
+                         f"{want.get(name)}")
+        elif blk != nb:
+            diffs.append(f"{name}: {nb} bytes in a {blk}-byte block")
+    diffs += [f"{k}: {want[k]} bytes in the dry run, not held"
+              for k in sorted(set(want) - set(got))]
+    blocks = sum(blk or 0 for _, blk in got.values())
+    print(f"{what}: allocated {allocated} bytes ({allocated / 2**30:.3f} "
+          f"GiB); the dry run counts {sum(want.values())} bytes, "
+          f"{sum(want[k] for k in got if k in want)} of them held; the "
+          f"held tensors' allocator blocks {blocks} bytes; unexplained "
+          f"{allocated - blocks} bytes; differences, tensor by tensor:")
+    for d in diffs:
+        print(f"  {d}")
+    if any("holds" in d for d in diffs) or any(
+            blk is None for _, blk in got.values()):
+        fail(f"{what}: a tensor's bytes differ from the dry run's count")
+    if allocated != blocks:
+        fail(f"{what}: {allocated - blocks} bytes allocated that no held "
+             f"tensor accounts for")
+
+
+def rodent_alloc_check(sim, rec, allocated):
+    """The Simulator's bytes against the dry run's count for one rank
+    (``rec``, `lower_bcpnn` at its n_hcu), leaf by leaf (`alloc_check`):
+    the state and connectivity are counted, the Simulator's key is held
+    beside them, the dry run's input ``ext`` is passed to each run, not
+    held."""
+    from repro_torch.launch.dryrun import named_leaves
+    held = dict(named_leaves(sim.state, "state."))
+    held.update(named_leaves(sim.conn, "conn."))
+    held["Simulator._key"] = sim._key
+    alloc_check("rodent: init", rec["memory"]["argument_bytes_by_leaf"],
+                held, allocated, beside=("Simulator._key",))
+
+
+def check_rodent_kernels(p, dev):
+    """Phase 3's check of the two fused kernels at rodent widths (R=1200,
+    C=70) on ``p``'s cut HCU count, flat planes: each against its plain
+    version on seeded inputs, integers exactly, floats rtol 1e-5 / atol
+    1e-6 (weights 1e-5). Returns the max abs errors."""
+    import torch
+    from repro_torch.core import hcu as H
+    k, ki = H.coeffs_ij(p), H.coeffs_i(p)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    planes = random_planes(p, gen, dev)
+    now = torch.tensor(NOW, dtype=torch.int32, device=dev)
+    rin, cin = row_inputs(p, gen, dev), col_inputs(p, gen, dev)
+    flush = torch.ones(64 << 20, dtype=torch.uint8, device=dev)
+    errs = {}
+    for kname, call in (
+            ("fused_row_update", lambda fn, pl: fn(
+                *(pl[f] for f in NAMES9), rin["rows"], now, rin["counts"],
+                rin["zj"], rin["p_i"], rin["pj"], rin["zi_new"],
+                rin["ei_new"], rin["pi_new"], k, p.eps)),
+            ("fused_col_update", lambda fn, pl: fn(
+                *(pl[f] for f in NAMES9), cin["pj"], cin["h_idx"],
+                cin["j_idx"], now, k, ki, p.eps, p.n_hcu, p.rows))):
+        e, _, _ = check_inplace(f"rodent {kname}", kname, call, planes,
+                                NAMES9, flush, time_plain=False)
+        errs[kname] = max(e.values())
+    print(f"rodent kernels vs plain at R={p.rows} C={p.cols}, {p.n_hcu} "
+          f"HCUs (flat): max abs error {json.dumps(errs)}")
+    del planes, flush
+    torch.cuda.empty_cache()
+    return errs
+
+
+def time_rodent_kernels(sim, p, dev):
+    """Both fused kernels timed (`time_cuda`) on the Simulator's own planes
+    at the full HCU count, on phase 3's seeded operands at these widths,
+    beside the function's and the flat layout's 32-byte-sector bounds and
+    time_cuda's floor. The calls rewrite the planes: the last use of
+    them."""
+    import torch
+    from repro_torch.core import hcu as H
+    from repro_torch.kernels import bcpnn_update as BU
+    k, ki = H.coeffs_ij(p), H.coeffs_i(p)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rin, cin = row_inputs(p, gen, dev), col_inputs(p, gen, dev)
+    now = torch.tensor(NOW, dtype=torch.int32, device=dev)
+    hc = sim.state.hcus
+    n, R, C = p.n_hcu, p.rows, p.cols
+    W, K = rin["rows"].shape[0], cin["h_idx"].shape[0]
+    nv = int((rin["rows"] < n * R).sum())
+    nf = int((cin["h_idx"] < n).sum())
+    flush = torch.ones(64 << 20, dtype=torch.uint8, device=dev)
+    floor = floor_ms(flush)
+    row = lambda: BU.fused_row_update_kernel(
+        *(getattr(hc, f) for f in NAMES9), rin["rows"], now, rin["counts"],
+        rin["zj"], rin["p_i"], rin["pj"], rin["zi_new"], rin["ei_new"],
+        rin["pi_new"], k, p.eps)
+    col = lambda: BU.fused_col_update_kernel(
+        *(getattr(hc, f) for f in NAMES9), cin["pj"], cin["h_idx"],
+        cin["j_idx"], now, k, ki, p.eps, n, R)
+    out = {}
+    for kname, fn, fb, sb in (
+            ("fused_row_update", row, row_phase_bytes(nv, W, n, C, C * 4),
+             row_phase_bytes(nv, W, n, C, sector_bytes(p, None, "row"))),
+            ("fused_col_update", col, col_phase_bytes(nf, K, R, R * 4),
+             col_phase_bytes(nf, K, R, sector_bytes(p, None, "col")))):
+        ms = time_cuda(fn, flush)
+        out[kname] = {"ms": ms, "function_bound_ms": fb / HBM_BYTES_PER_S * 1e3,
+                      "sector_bound_ms": sb / HBM_BYTES_PER_S * 1e3,
+                      "floor_ms": floor}
+        print(f"rodent {kname} at {n} HCUs: {ms:.5f} ms, function bound "
+              f"{out[kname]['function_bound_ms']:.5f} ms ({fb} bytes), "
+              f"sector bound {out[kname]['sector_bound_ms']:.5f} ms ({sb} "
+              f"bytes), time_cuda's floor {floor:.5f} ms")
+    print(f"rodent kernels' inputs: {nv} live of {W} row slots, {nf} fired "
+          f"of {K} column entries")
+    del flush
+    return out
+
+
+def phase_rodent(report, smi):
+    """Phase 5c: `get_config("bcpnn-rodent")` (32,000 HCUs of R=1200 x
+    C=70, 2.69e9 cells a plane) whole on the card through the fused
+    worklist kernels (`select_backend`: R*C = 84,000 > 65,536), flat
+    layout. The kernels' check at rodent widths on a cut; the init's
+    bytes against the dry run's count; a per-tick run of RODENT_MATCH
+    ticks against a reset() run of them through the graphs (fired history
+    and integer leaves bit for bit); RODENT_TICKS ticks through the graphs
+    that capture, then two timed runs of RODENT_TICKS (replays only) beside
+    real time and the roofline bound; a per-phase profile of
+    PROFILE_TICKS per-tick ticks; the kernels timed at the full size."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import Simulator
+    from repro_torch.core.params import rodent_scale
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.dryrun import lower_bcpnn
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    print(f"rodent: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+          f"allocated at the start of the phase")
+    dev = torch.device("cuda")
+    p = get_config("bcpnn-rodent")
+    errs = check_rodent_kernels(rodent_scale(n_hcu=RODENT_CHECK_HCUS), dev)
+
+    rec = lower_bcpnn("rodent", multi_pod=False, n_hcu=p.n_hcu, ranks=1)
+    bound = RL.analyze(rec)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sim = Simulator(p, key=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    be = sim.backend
+    print(f"rodent: Simulator(get_config('bcpnn-rodent')) {p.n_hcu} HCUs, "
+          f"R={p.rows} C={p.cols} fanout={p.fanout}, "
+          f"{type(be).__name__}{tuple(be)}, init {init_s:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, init "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if not (type(be).__name__ == "WorklistBackend" and be.fused
+            and be.fused_cols and be.layout is None):
+        fail(f"rodent: backend {be}, expected the fused worklist backend")
+    rodent_alloc_check(sim, rec, torch.cuda.memory_allocated() - before)
+
+    T = RODENT_MATCH + 3 * RODENT_TICKS + PROFILE_TICKS
+    t0 = time.perf_counter()
+    ext = torch.from_numpy(ext_block(p, T)).to(dev)
+    print(f"rodent: {T} ticks of Poisson input (lambda 4, width 8) staged in "
+          f"{time.perf_counter() - t0:.2f} s")
+    expect = ("fused_row_update", "fused_col_update")
+
+    # the per-tick loop from the init, then reset() and the same ticks
+    # through a graph: fired history and integer leaves bit for bit
+    reset_launches()
+    t0 = time.perf_counter()
+    per_tick = torch.stack([sim.tick(e) for e in ext[:RODENT_MATCH]])
+    torch.cuda.synchronize()
+    loop_us = (time.perf_counter() - t0) / RODENT_MATCH * 1e6
+    check_counts("rodent (per-tick)", read_launches(),
+                 {k: RODENT_MATCH for k in expect})
+    saved = {k: v.clone() for k, v in int_leaves(sim.state).items()}
+    sim.reset()
+    t0 = time.perf_counter()
+    graphed = sim.run(ext[:RODENT_MATCH])
+    torch.cuda.synchronize()
+    match_s = time.perf_counter() - t0
+    if not torch.equal(graphed, per_tick):
+        fail(f"rodent: the graphs' fired history differs from the per-tick "
+             f"loop's in {int((graphed != per_tick).sum())} places")
+    for k, v in int_leaves(sim.state).items():
+        if not torch.equal(v, saved[k]):
+            fail(f"rodent: {k} after {RODENT_MATCH} ticks differs between "
+                 f"the per-tick loop and the graphs")
+    del saved
+    torch.cuda.empty_cache()
+    print(f"rodent: {RODENT_MATCH} ticks of the per-tick loop "
+          f"({loop_us:.1f} us/tick) and, after reset(), through a graph "
+          f"({match_s:.2f} s with its capture): fired history "
+          f"({int((per_tick >= 0).sum())} spikes) and {', '.join(int_leaves(sim.state))} "
+          f"bit for bit")
+
+    # the graphs: a run that captures, then two timed runs of replays
+    lo = RODENT_MATCH
+    reset_launches()
+    t0 = time.perf_counter()
+    sim.run(ext[lo:lo + RODENT_TICKS])
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    at_capture = read_launches()
+    check_counts("rodent (graphs, captures)", at_capture,
+                 {k: RODENT_TICKS for k in expect})
+    nodes = {L: graph_nodes(g) for L, g in sim.graphs.captured.items()}
+    print(f"rodent: {RODENT_TICKS} ticks through the graphs in "
+          f"{capture_s:.2f} s with their captures ({json.dumps(nodes)} nodes "
+          f"by chunk length); launches counted at capture "
+          f"{json.dumps(at_capture)}")
+    us, spans = [], []
+    for rep in range(GRAPH_REPEATS):
+        lo += RODENT_TICKS
+        fired, wall, span, _ = timed_ticks(
+            "rodent", "graphs", lambda: sim.run(ext[lo:lo + RODENT_TICKS]), {})
+        rate = check_state("rodent", sim, fired, p, RODENT_TICKS,
+                           lo + RODENT_TICKS)
+        us.append(wall / RODENT_TICKS * 1e6)
+        spans.append(span / RODENT_TICKS * 1e3)
+        print(f"rodent [graphs, run {rep + 1}, {smi}]: {RODENT_TICKS} ticks "
+              f"in {wall:.4f} s = {us[-1]:.1f} us/tick (device span "
+              f"{spans[-1]:.1f} us/tick) against {REAL_TIME_US:.0f} us/tick "
+              f"real time and a roofline bound of "
+              f"{bound.t_step * 1e6:.1f} us/tick ({bound.bottleneck}: "
+              f"{rec['lazy_bytes_per_tick']:.4g} bytes of lazy traffic at "
+              f"{RL.HBM_BW:.3g} B/s; compute {bound.t_compute * 1e6:.1f} "
+              f"us); fired rate {rate:.4f} per HCU per tick; drops "
+              f"{sim.drops()}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if set(sim.graphs.captured) != set(nodes):
+        fail("rodent: the timed ticks captured a graph")
+    lo += RODENT_TICKS
+    prof = profile_ticks("rodent", sim, ext[lo:lo + PROFILE_TICKS], expect)
+    phases = prof.get("phase_device_us_per_tick") or {}
+    busy = prof.get("device_busy_us_per_tick")
+    if busy is not None:
+        glue = busy - sum(phases.values())
+        print(f"rodent phases (device us/tick): row "
+              f"{phases.get('worklist_lazy_rows', 0):.1f}, WTA "
+              f"{phases.get('periodic_update', 0):.1f}, column "
+              f"{phases.get('_column_worklist', 0):.1f}, fan-out "
+              f"{phases.get('enqueue_spikes', 0):.1f}, glue {glue:.1f} "
+              f"(of {busy:.1f} busy)")
+    timing = time_rodent_kernels(sim, p, dev)
+    del sim, ext
+    torch.cuda.empty_cache()
+    print(f"rodent: peak {peak:.3f} GiB allocated; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    for e in report:
+        if e["name"] in expect:
+            e.setdefault("launches_by_path", {})[
+                f"rodent {p.n_hcu} HCUs (at capture)"] = at_capture[e["name"]]
+            e["rodent"] = dict(timing[e["name"]], max_abs_err=errs[e["name"]])
+    return {"us_per_tick_graphs": us, "device_span_us_per_tick": spans,
+            "us_per_tick_per_tick": loop_us, "bound_us": bound.t_step * 1e6,
+            "peak_gib": peak, "profile": prof, "kernels": timing}
+
+
+# ---------------------------------------------------------------------------
 # phase 8: resilience, the associative-memory protocol and recall serving
 # ---------------------------------------------------------------------------
 
@@ -2703,7 +3097,8 @@ def phase_recall(report):
     paths["serve_human"] = phase_serve()
     for e in report:
         if e["name"] in BCPNN_KERNELS:
-            e["launches_by_path"] = {k: v[e["name"]] for k, v in paths.items()}
+            e.setdefault("launches_by_path", {}).update(
+                {k: v[e["name"]] for k, v in paths.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -3364,6 +3759,143 @@ def mesh_rank(rank, world, cfg, steps):
     return out
 
 
+def mesh_state_bytes(mesh, smi, ref):
+    """12a's dry-run check: `launch.dryrun.lower_cell` of 11b's step
+    (TRAIN_ARCH at TRAIN_BATCH x TRAIN_SEQ, train kind) on ``mesh`` (the
+    1-rank (1, 1) mesh) counts one rank's argument bytes (parameters,
+    AdamW state, batch) and flops on meta tensors; the same state is then
+    built on the card (`launch.train.shard_state` and the placed batch) and
+    the bytes its tensors hold must equal the count input by input
+    (parameters, optimizer state, batch), and memory_allocated's growth
+    their allocator blocks (`alloc_blocks`), the difference printed.
+    Prints the step's roofline bound beside 11b's measured ms a step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.train import shard_state
+    from repro_torch.models.sharding import DEFAULT_RULES, use_rules
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import AdamW
+    cfg = get_config(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    rec = lower_cell(TRAIN_ARCH, "train_4k", multi_pod=False, mesh=mesh,
+                     mesh_name="host1x1", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     measure_temp=False)
+    dry_s = time.perf_counter() - t0
+    bound = RL.analyze(rec)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    with use_rules(DEFAULT_RULES, mesh):
+        model = Model(cfg, seed=0)
+        params, opt_state, place = shard_state(model, AdamW(), mesh)
+        tokens = torch.zeros((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32,
+                             device="cuda")
+        batch = place({"tokens": tokens, "labels": tokens.clone()})
+        del tokens
+        torch.cuda.synchronize()
+        got = torch.cuda.memory_allocated() - before
+        local = lambda t: t.to_local() if hasattr(t, "to_local") else t
+        groups = {"params": list(params.values()),
+                  "opt_state": [opt_state.step, *opt_state.mu.values(),
+                                *opt_state.nu.values()],
+                  "batch": list(batch.values())}
+        held = {f"{g}.{i}": local(t) for g, ts in groups.items()
+                for i, t in enumerate(ts)}
+        blocks = alloc_blocks(held)
+        del model, params, opt_state, batch, held, groups
+    torch.cuda.empty_cache()
+    by_input = rec["memory"]["argument_bytes_by_input"]
+    holds = {g: sum(nb for k, (nb, _) in blocks.items()
+                    if k.startswith(g + ".")) for g in by_input}
+    print(f"12a dry run ({dry_s:.1f} s on meta tensors): {TRAIN_ARCH} train "
+          f"state at batch {TRAIN_BATCH} x {TRAIN_SEQ} on mesh (1, 1): "
+          f"{rec['memory']['argument_bytes']} argument bytes "
+          f"({json.dumps(by_input)}); built on the card: {json.dumps(holds)}")
+    block_total = sum(blk or 0 for _, blk in blocks.values())
+    if holds != by_input or got != block_total:
+        fail(f"12a: the train state holds {json.dumps(holds)} "
+             f"({got} allocated, {block_total} in its blocks), the dry run "
+             f"counts {json.dumps(by_input)}")
+    print(f"12a: memory_allocated grew {got} bytes, the state's allocator "
+          f"blocks {block_total} (its tensors {sum(holds.values())} bytes: "
+          f"{block_total - sum(holds.values())} bytes of blocks beyond the "
+          f"requests, the allocator's rounding); unexplained "
+          f"{got - block_total}")
+    print(f"12a roofline [{smi}]: {TRAIN_ARCH} train step at batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} on one card: "
+          f"{rec['cost']['flops']:.4g} flops (matmuls and attention, remat "
+          f"included; {bound.t_compute * 1e3:.2f} ms at bf16 peak), "
+          f"{rec['cost']['bytes accessed']:.4g} bytes accessed by unfused "
+          f"operations ({bound.t_memory * 1e3:.2f} ms at HBM3): bound "
+          f"{bound.t_step * 1e3:.2f} ms ({bound.bottleneck}) against 11b's "
+          f"measured {ref['ms']:.2f} ms a step; model flops "
+          f"{rec['model_flops']:.4g} (6 N D)")
+    return rec
+
+
+SERVE_MESH_NEW = 9        # the prefill's token and 8 decode steps
+
+
+def mesh_serve(mesh, smi):
+    """12c: qwen2-1.5b at full width (bf16 compute, pallas_flash, random
+    weights from seed 0) serves one wave of LM_SLOTS prompts of LM_PROMPT
+    tokens and 8 decode steps, first through `ServingEngine` on one
+    device, then through `generate(..., mesh=)` on ``mesh`` (the 1-rank
+    NCCL mesh, parameters and KV caches DTensors): the tokens bit for bit
+    the engine's, and the flash kernel launched once a layer of the
+    sharded prefill, every time `flash_mma_kernel`, on the rank's local
+    tensors (the wrapper raises on a DTensor)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.serve import Request, ServingEngine
+    from repro_torch.models.sharding import DEFAULT_RULES, use_rules
+    from repro_torch.models.transformer import Model
+    from repro_torch.train.serve_step import generate
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"),
+                              attn_impl="pallas_flash")
+    model = Model(cfg, seed=0)
+    gen = np.random.default_rng(0)
+    prompts = [gen.integers(0, cfg.vocab, LM_PROMPT) for _ in range(LM_SLOTS)]
+    eng = ServingEngine(model, LM_SLOTS, LM_MAX_LEN)
+    for rid, pr in enumerate(prompts):
+        eng.submit(Request(rid, pr, SERVE_MESH_NEW))
+    t0 = time.perf_counter()
+    done = sorted(eng.run(), key=lambda r: r.rid)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    want = np.asarray([r.out for r in done])
+    tokens = torch.as_tensor(np.stack(prompts), dtype=torch.int32,
+                             device="cuda")
+    with use_rules(DEFAULT_RULES, mesh):
+        SH.shard_params(model, cfg, mesh)
+        reset_launches()
+        t0 = time.perf_counter()
+        got = generate(model, {"tokens": tokens}, SERVE_MESH_NEW,
+                       LM_MAX_LEN, mesh=mesh).cpu().numpy()
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        counts, routes = read_launches(), dict(FA.routes)
+    del model, eng
+    torch.cuda.empty_cache()
+    if not np.array_equal(got, want):
+        fail(f"12c: the mesh's tokens differ from the engine's in "
+             f"{int((got != want).sum())} of {want.size}")
+    if counts["flash_attention"] != cfg.n_layers or \
+            routes.get("mma") != cfg.n_layers:
+        fail(f"12c: flash launched {counts['flash_attention']} times "
+             f"({routes}), expected {cfg.n_layers} through flash_mma_kernel")
+    print(f"12c [{smi}]: qwen2-1.5b at full width, {LM_SLOTS} x {LM_PROMPT} "
+          f"tokens and {SERVE_MESH_NEW - 1} decode steps: the one-device "
+          f"engine {one_s:.2f} s, generate(mesh=) on the 1-rank NCCL mesh "
+          f"{mesh_s:.2f} s; tokens bit for bit ({want.size}); flash "
+          f"launched {counts['flash_attention']} times on local tensors, "
+          f"routes {json.dumps(routes)}")
+    return counts["flash_attention"]
+
+
 def phase_train_mesh(smi, ref):
     """12a and 12b: `launch.train.train(mesh=...)` on the card. ``ref`` is
     phase 11b's summary (losses, ms a step, tokens/s, peak GiB)."""
@@ -3389,6 +3921,7 @@ def phase_train_mesh(smi, ref):
                                 rank=0, world_size=1, device_id=dev)
         try:
             mesh = make_host_mesh()
+            dry = mesh_state_bytes(mesh, smi, ref)
             torch.cuda.reset_peak_memory_stats()
             reset_launches()
             t0 = time.perf_counter()
@@ -3401,6 +3934,8 @@ def phase_train_mesh(smi, ref):
             peak = torch.cuda.max_memory_allocated() / 2**30
             placed = {str(p.placements) for p in model.parameters()}
             del model
+            torch.cuda.empty_cache()
+            served = mesh_serve(mesh, smi)
         finally:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -3478,7 +4013,92 @@ def phase_train_mesh(smi, ref):
           f" s")
     return {"12a": counts["flash_attention"],
             "12b": sum(res[r][t]["launches"]["flash_attention"]
-                       for r in range(MESH_RANKS) for t in ("tp", "zero"))}
+                       for r in range(MESH_RANKS) for t in ("tp", "zero")),
+            "12c serve": served}, dry
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the examples on the card
+# ---------------------------------------------------------------------------
+
+# example -> (arguments, its closing line, the kernels it must launch)
+EXAMPLE_RUNS = {
+    "quickstart_torch": ([], "OK — lazy BCPNN network ran and stayed "
+                             "consistent.", ("row_update", "col_update")),
+    "bcpnn_assoc_memory_torch": ([], "OK — associative recall well above "
+                                     "chance.", ("row_update", "col_update")),
+    "serve_lm_torch": (["--attn", "pallas_flash", "--prompt-len", "128"],
+                       "OK — engine output matches the reference decode "
+                       "path.", ("flash_attention",)),
+    "train_lm_torch": (["--steps", "60"], "OK — training reduced the loss.",
+                       ()),
+}
+EXAMPLE_WRAPPER = """
+import json, runpy, sys
+sys.path.insert(0, sys.argv[1])
+script = sys.argv[2]
+sys.argv = [script] + sys.argv[3:]
+runpy.run_path(script, run_name="__main__")
+from repro_torch.kernels import bcpnn_update as BU, flash_attention as FA
+print("LAUNCHES " + json.dumps({**BU.launches, **FA.launches,
+                                "flash_routes": dict(FA.routes)}))
+"""
+
+
+def phase_examples(smi):
+    """Phase 13: the four examples/*_torch.py on CUDA (their default
+    device), as subprocesses started together, each at its published
+    sizes but the training example's steps (60 of 200); each must exit 0
+    with its closing OK line, and its kernels' launch counters (printed by
+    a wrapper after the example returns) must show every kernel of its
+    path: the dense backend's row and column block kernels for the two
+    BCPNN examples, flash (through `flash_mma_kernel`) for the serving
+    example's 128-token prefills; training launches none. Returns the
+    launches by example."""
+    t0 = time.perf_counter()
+    procs = {}
+    for name, (args, _, _) in EXAMPLE_RUNS.items():
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-c", EXAMPLE_WRAPPER, str(ROOT / "src"),
+             str(ROOT / "examples" / f"{name}.py"), *args],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=str(ROOT))
+    done = {}
+    try:
+        for name, proc in procs.items():
+            done[name] = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        fail(f"examples: {name} ran past 300 s")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = {}
+    for name, proc in procs.items():
+        stdout, stderr = done[name]
+        _, ok, kernels = EXAMPLE_RUNS[name]
+        lines = stdout.strip().splitlines()
+        if proc.returncode != 0 or len(lines) < 2 or lines[-2] != ok:
+            fail(f"examples: {name} exited {proc.returncode}; stdout tail "
+                 f"{lines[-3:]}; stderr tail {stderr[-1500:]}")
+        counts = json.loads(lines[-1][len("LAUNCHES "):])
+        routes = counts.pop("flash_routes")
+        for k in kernels:
+            if not counts.get(k):
+                fail(f"examples: {name} launched no {k} ({counts})")
+        if "flash_attention" in kernels and routes.get("mma") != \
+                counts["flash_attention"]:
+            fail(f"examples: {name}'s flash launches took {routes}")
+        if not kernels and any(counts.values()):
+            fail(f"examples: {name} launched {counts}, expected none")
+        out[name] = counts
+        print(f"examples [{smi}]: {name} {' '.join(EXAMPLE_RUNS[name][0])}: "
+              f"{lines[-3] if len(lines) > 2 else ''} / {ok} launches "
+              f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    print(f"examples: all four in {time.perf_counter() - t0:.1f} s, run "
+          f"together")
+    return out
 
 
 def main():
@@ -3522,6 +4142,8 @@ def main():
     done("paths")
     phase_checkpoints(dev)
     done("checkpoints")
+    phase_rodent(report, smi)
+    done("rodent")
     phase_recall(report)
     done("recall")
     flash = phase_flash(dev)
@@ -3541,14 +4163,23 @@ def main():
     phase_train_fixture(dev)
     by_path[f"{TRAIN_ARCH} train"], train_ref = phase_train(dev, smi)
     done("train")
-    mesh_counts = phase_train_mesh(smi, train_ref)
+    mesh_counts, _ = phase_train_mesh(smi, train_ref)
     for tag, n in mesh_counts.items():
-        by_path[f"{TRAIN_ARCH} train mesh {tag}"] = n
+        by_path[f"{TRAIN_ARCH} {'' if 'serve' in tag else 'train '}mesh "
+                f"{tag}"] = n
     for entry in report:
         if entry["name"] in BCPNN_KERNELS:
             entry.setdefault("launches_by_path", {}).update(
-                {f"train mesh {tag}": 0 for tag in mesh_counts})
+                {f"mesh {tag}": 0 for tag in mesh_counts})
     done("train mesh")
+    examples = phase_examples(smi)
+    for name, counts in examples.items():
+        by_path[f"example {name}"] = counts["flash_attention"]
+        for entry in report:
+            if entry["name"] in BCPNN_KERNELS:
+                entry.setdefault("launches_by_path", {})[
+                    f"example {name}"] = counts[entry["name"]]
+    done("examples")
     flash["launches"] = sum(by_path.values())
     flash["launches_by_path"] = by_path
     report.append(flash)
@@ -3556,9 +4187,10 @@ def main():
           "computes a cell-math pass; flash_attention's is "
           "scaled_dot_product_attention (enable_gqa) at the qwen2-1.5b bf16 "
           "shape (by_shape: at each shape without softcap or window); its "
-          "launches are the LM serving runs' of phases 6b, 7 and 10; "
-          "training "
-          "(phases 11b and 12) launches none of the six kernels")
+          "launches are the LM serving runs' of phases 6b, 7, 10 and 12c "
+          "and the serving example's; training (phases 11b, 12a, 12b and "
+          "the training example) launches none of the six kernels; the "
+          "fused kernels' rodent entry times them at 32,000 HCUs")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

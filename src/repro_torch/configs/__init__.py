@@ -2,8 +2,9 @@
 
 Each module defines CONFIG (the published dims) and SMOKE (a reduced
 same-family config for CPU tests), as data only, the same values as the
-JAX package's `repro.configs`. The BCPNN scale presets are
-`repro_torch.core.params.human_scale` / `rodent_scale`.
+JAX package's `repro.configs`. The BCPNN scale presets live in
+bcpnn_human / bcpnn_rodent (CONFIG, DRYRUN_N_HCU, SMOKE), under
+`BCPNN_IDS`: their CONFIG is a `core.params.BCPNNParams`.
 """
 from __future__ import annotations
 
@@ -23,7 +24,9 @@ ARCH_IDS = [
     "whisper-large-v3",
 ]
 
-_MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
+BCPNN_IDS = ["bcpnn-human", "bcpnn-rodent"]
+
+_MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS + BCPNN_IDS}
 
 
 def get_config(arch_id: str):

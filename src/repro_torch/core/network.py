@@ -550,7 +550,8 @@ def stage_external(ext, n_ticks: int | None = None, t0: int = 0,
                    device=None) -> torch.Tensor:
     """Stage external input as the dense (T, H, A_ext) int32 tensor that
     `network_run` consumes. `ext` is an array or tensor, an iterable of
-    (H, A_ext) frames, or a callable ext_fn(t) sampled at t0+1 .. t0+n_ticks."""
+    (H, A_ext) frames (arrays, or tensors on any device), or a callable
+    ext_fn(t) sampled at t0+1 .. t0+n_ticks."""
     if callable(ext):
         if n_ticks is None:
             raise ValueError("n_ticks required with a callable")
@@ -558,5 +559,7 @@ def stage_external(ext, n_ticks: int | None = None, t0: int = 0,
     if isinstance(ext, np.ndarray):
         ext = torch.from_numpy(ext)
     elif not torch.is_tensor(ext):
-        ext = torch.from_numpy(np.stack([np.asarray(e) for e in ext]))
+        ext = torch.stack([torch.as_tensor(e).to(device=device,
+                                                 dtype=torch.int32)
+                           for e in ext])
     return ext.to(device=device, dtype=torch.int32)

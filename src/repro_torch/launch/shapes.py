@@ -72,15 +72,17 @@ def cache_tree(cfg: ArchConfig, batch: int, max_len: int) -> list:
             for pattern, repeats in build_stack_spec(cfg)]
 
 
-def input_specs(cfg: ArchConfig, shape_name: str):
+def input_specs(cfg: ArchConfig, shape_name: str, batch: int | None = None,
+                seq: int | None = None):
     """Meta-tensor trees for one (arch x shape) cell: what the
-    corresponding step function consumes.
+    corresponding step function consumes (``batch`` / ``seq`` in place of
+    the shape's own, where given).
       train  : {batch}
       prefill: {batch, caches}
       decode : {token, pos, caches[, memory, mem_pos]}
     """
     sh = SHAPES[shape_name]
-    B, S = sh["batch"], sh["seq"]
+    B, S = batch or sh["batch"], seq or sh["seq"]
     if sh["kind"] == "train":
         batch = {"tokens": _meta((B, S), torch.int32),
                  "labels": _meta((B, S), torch.int32)}

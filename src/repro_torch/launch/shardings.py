@@ -37,9 +37,10 @@ from repro_torch.models.base import ArchConfig
 from repro_torch.models.sharding import P, mesh_axes, placements, shard_tensor
 from repro_torch.train.optimizer import AdamWState
 
-__all__ = ["DP", "TP", "P", "batch_specs", "cache_specs", "layer_specs",
-           "opt_specs", "param_spec", "param_specs", "placements",
-           "shape_tree", "shard_params", "shard_tensor"]
+__all__ = ["DP", "TP", "P", "batch_specs", "cache_specs", "layer_cache_specs",
+           "layer_specs", "opt_specs", "param_spec", "param_specs",
+           "placements", "shape_tree", "shard_batch", "shard_caches",
+           "shard_params", "shard_tensor"]
 
 # logical mesh axis groups
 DP = ("pod", "data")
@@ -282,3 +283,60 @@ def shard_params(model, cfg: ArchConfig, mesh, *,
             d = shard_tensor(own[n].detach(), mesh, placements(s, mesh))
         _set_param(model, n, nn.Parameter(d, requires_grad=own[n].requires_grad))
     return tree
+
+
+def layer_cache_specs(spec_tree, cfg: ArchConfig) -> list:
+    """One spec tree a decoder layer, in stack order (the port's
+    `Model.init_cache`), from a spec tree over the JAX package's cache
+    tree (`cache_specs` of `launch.shapes.cache_tree`): each stacked leaf's
+    spec loses its repeat entry. A `KVCache`'s ``length`` (a host int in
+    the port) has no spec."""
+    from repro_torch.models.layers import KVCache
+    from repro_torch.models.transformer import build_stack_spec
+
+    def drop(s):
+        if isinstance(s, KVCache):
+            return KVCache(drop(s.k), drop(s.v), None)
+        if isinstance(s, tuple) and not isinstance(s, P):
+            return tuple(drop(t) for t in s)
+        return None if s is None else P(*s[1:])
+    return [drop(spec_tree[i][j])
+            for i, (pattern, repeats) in enumerate(build_stack_spec(cfg))
+            for _ in range(repeats) for j in range(len(pattern))]
+
+
+def shard_caches(caches: list, cfg: ArchConfig, mesh, *,
+                 seq_shard: bool = False) -> list:
+    """The port's per-layer decode caches (`Model.init_cache`) as DTensors
+    on ``mesh``, laid out by `cache_specs` as the JAX package lays out its
+    stacked caches (batch over the data axes, kv heads, or else the head
+    dim, over "model"; with ``seq_shard`` a batch-1 cache's sequence over
+    the data axes). Each rank keeps its shard of the caches it holds."""
+    from repro_torch.launch.shapes import cache_tree
+    from repro_torch.models.layers import KVCache
+    kv = next((c for c in caches if isinstance(c, KVCache)), None)
+    first = next(t for c in caches if c is not None
+                 for t in (c if isinstance(c, tuple) else (c,))
+                 if torch.is_tensor(t))
+    B, max_len = (kv.k.shape[0], kv.k.shape[1]) if kv is not None else \
+        (first.shape[0], 1)
+    specs = layer_cache_specs(
+        cache_specs(cache_tree(cfg, B, max_len), cfg, mesh,
+                    seq_shard=seq_shard), cfg)
+
+    def place(c, s):
+        if isinstance(c, KVCache):
+            return KVCache(place(c.k, s.k), place(c.v, s.v), c.length)
+        if isinstance(c, tuple):
+            return tuple(place(t, u) for t, u in zip(c, s))
+        if c is None:
+            return None
+        return shard_tensor(c, mesh, placements(s, mesh))
+    return [place(c, s) for c, s in zip(caches, specs)]
+
+
+def shard_batch(batch: dict, mesh) -> dict:
+    """A batch (the same on every rank) laid out by `batch_specs`."""
+    specs = batch_specs(batch, mesh)
+    return {k: shard_tensor(v, mesh, placements(specs[k], mesh))
+            for k, v in batch.items()}

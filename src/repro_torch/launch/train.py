@@ -103,11 +103,7 @@ def shard_state(model: Model, opt: AdamW, mesh, *, zero: bool = False):
         n: placements(s, mesh)
         for n, s in SH.layer_specs(o_specs.mu, cfg, params).items()})
 
-    def place_batch(b):
-        specs = SH.batch_specs(b, mesh)
-        return {k: shard_tensor(v, mesh, placements(specs[k], mesh))
-                for k, v in b.items()}
-    return params, opt_state, place_batch
+    return params, opt_state, lambda b: SH.shard_batch(b, mesh)
 
 
 def train(arch: str, steps: int, batch: int, seq: int, smoke: bool = True,

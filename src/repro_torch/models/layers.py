@@ -8,8 +8,11 @@ JAX package's layouts: activations (B, S, D), heads (B, S, H, hd), caches
 ``cfg.cdtype`` at every matmul; logits, softmax and PV run in float32.
 The JAX package's sharding hints (`models.sharding.hint`) stand where it
 has them: the identity without a mesh, a DTensor redistribution under
-one. The flash kernel takes plain tensors only: a DTensor that reaches
-it raises (`kernels.ops.flash_attention`).
+one. The flash kernel takes plain tensors only (a DTensor that reaches
+`kernels.ops.flash_attention` raises): under a mesh it runs in a local
+region (`sharding.local_flash`) on each rank's block, and a cached
+prefill or decode writes each rank's shard of the KV cache in place
+(`sharding.write_local`).
 
 Attention covers, through arguments: GQA with any kv-head count, QKV bias
 (qwen2), logit softcap (gemma2), sliding windows (gemma2's local layers),
@@ -31,7 +34,8 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.models.base import ArchConfig, dense_init
 from repro_torch.models.sharding import (hint, is_sharded, local_attention,
-                                         mapped_size, replicate)
+                                         local_flash, mapped_size, replicate,
+                                         write_local)
 
 NEG_INF = -1e30
 
@@ -141,10 +145,11 @@ def _sdpa_flash(q, k, v, cfg: ArchConfig, scale, sliding_window, kv_len):
     """The flash kernel's path, on the tensors as they lie: q (B,Sq,H,hd)
     from the projections, k / v (B,Skv,Kv,hd) (the KV cache itself when
     there is one). The kernel reads each kv head for its G query heads, so
-    nothing is repeated, permuted or copied; returns (B,Sq,H,hd)."""
-    return ops.flash_attention(q, k, v, scale=scale, causal=True,
-                               window=sliding_window,
-                               softcap=cfg.attn_softcap, kv_len=kv_len)
+    nothing is repeated, permuted or copied; returns (B,Sq,H,hd). Under a
+    mesh it runs on each rank's block (`sharding.local_flash`)."""
+    return local_flash(ops.flash_attention, q, k, v, scale=scale,
+                       causal=True, window=sliding_window,
+                       softcap=cfg.attn_softcap, kv_len=kv_len)
 
 
 def attend(params, x, cfg: ArchConfig, *, positions, kv=None,
@@ -214,8 +219,12 @@ def attend(params, x, cfg: ArchConfig, *, positions, kv=None,
         start, max_len = cache.length, cache.k.shape[1]
         if start + Sq > max_len:
             raise ValueError(f"KV cache overflow: {start} + {Sq} > {max_len}")
-        cache.k[:, start:start + Sq] = k.to(cache.k.dtype)
-        cache.v[:, start:start + Sq] = v.to(cache.v.dtype)
+        if hasattr(cache.k, "device_mesh"):      # a DTensor cache
+            write_local(cache.k, k, start)
+            write_local(cache.v, v, start)
+        else:
+            cache.k[:, start:start + Sq] = k.to(cache.k.dtype)
+            cache.v[:, start:start + Sq] = v.to(cache.v.dtype)
         cache = KVCache(cache.k, cache.v, start + Sq)
         k, v = cache.k, cache.v
 
@@ -229,9 +238,11 @@ def attend(params, x, cfg: ArchConfig, *, positions, kv=None,
         qg = q.reshape(B, Sq, H, 1, hd)
     else:
         qg = q.reshape(B, Sq, Kv, G, hd)
+    # the flash path has no per-row pad mask and no query-row offset (a
+    # query block cut along the sequence by a mesh takes the other paths)
     use_flash = (cfg.attn_impl == "pallas_flash" and Sq > 1 and kv is None
                  and causal and Sq % 128 == 0 and Skv % 128 == 0
-                 and pad is None)   # the flash path has no per-row pad mask
+                 and pad is None and not is_sharded(q, 1))
     if use_flash:
         out = _sdpa_flash(q, k, v, cfg, scale, sliding_window,
                           cache.length if cached else None)

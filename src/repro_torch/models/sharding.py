@@ -179,7 +179,9 @@ def shard_tensor(full: torch.Tensor, mesh, place) -> torch.Tensor:
     for i, pl in enumerate(place):
         if isinstance(pl, Shard):
             local = local.chunk(mesh.size(i), dim=pl.dim)[coord[i]]
-    local = local.to(mesh_device(mesh)).contiguous()
+    if local.device.type != "meta":      # a meta tensor stays (dry run)
+        local = local.to(mesh_device(mesh))
+    local = local.contiguous()
     return DTensor.from_local(
         local, mesh, place, run_check=False, shape=full.shape,
         stride=torch.empty(full.shape, device="meta").stride())
@@ -357,8 +359,10 @@ def local_region(fn, params, x, *args, **kw):
     row alone. ``x`` (B, ...) keeps its batch sharding and is gathered
     along its other dims; each parameter in ``params`` (a mapping, nested)
     is gathered whole, and its gradient is summed over the ranks that split
-    the batch. ``fn`` runs with no rules active; each tensor it returns
-    (batch-major) comes back as a DTensor laid out as ``x``."""
+    the batch. A DTensor among ``args`` (a recurrent state, batch-major;
+    tuples of them too) is laid out as ``x`` and passed local. ``fn`` runs
+    with no rules active; each tensor it returns (batch-major) comes back
+    as a DTensor laid out as ``x``."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = active_mesh()
     xp = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
@@ -372,7 +376,15 @@ def local_region(fn, params, x, *args, **kw):
             return {k: gather(p[k]) for k in p.keys()}
         return p.redistribute(mesh, rep).to_local(grad_placements=gp)
 
+    def localize(a):
+        if isinstance(a, DTensor):
+            return a.redistribute(mesh, xp).to_local()
+        if isinstance(a, tuple):
+            return tuple(localize(t) for t in a)
+        return a
+
     local_params = gather(params)
+    args = [localize(a) for a in args]
     prev = _ctx()
     _state.ctx = None
     try:
@@ -398,10 +410,12 @@ def local_attention(fn, q, k, v, mask, *args):
     the mask follow q: its batch shard, its head shard, or (q sharded
     over the sequence) whole keys with the mask's rows; k and v's
     gradients are then summed over those ranks. Plain tensors pass
-    straight to ``fn``."""
+    straight to ``fn``. Returns the result with its heads merged inside
+    the region, (B, Sq, Kv * G * hd)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    merge = lambda o: o.reshape(o.shape[0], o.shape[1], -1)
     if not isinstance(q, DTensor):
-        return fn(q, k, v, mask, *args)
+        return merge(fn(q, k, v, mask, *args))
     mesh = q.device_mesh
     kv_pl, kv_grad, mask_pl = [], [], []
     for p in q.placements:
@@ -425,4 +439,59 @@ def local_attention(fn, q, k, v, mask, *args):
         grad_placements=kv_grad)
     out = fn(q.to_local(), local(k), local(v),
              replicate(mask).redistribute(mesh, mask_pl).to_local(), *args)
+    # merged heads (B, Sq, Kv * G * hd) keep q's layout: its shards of
+    # dims 0-2 cut the merged dim where they cut the kv heads; the
+    # gradient then comes back to that layout before entering the region
+    return DTensor.from_local(merge(out), mesh, q.placements,
+                              run_check=False)
+
+
+def local_flash(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)`` (the flash kernel's entry: q (B, Sq, H, hd),
+    k / v (B, Skv, Kv, hd)) on each rank's block where q is a DTensor, so
+    that the kernel gets one rank's plain tensors. q must be sharded over
+    batch or heads only (a query block cut along the sequence would need
+    the causal mask's offset, which the kernel does not take); along each
+    mesh dim k and v follow q: its batch shard, its head shard (the caller
+    gives k and v as many heads per rank as q's kv groups need), or whole.
+    A KV cache already laid out that way is read in place. Serving only:
+    the result has no gradient to k and v. Plain tensors pass straight to
+    ``fn``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(q, DTensor):
+        return fn(q, k, v, **kw)
+    mesh = q.device_mesh
+    kv_pl = []
+    for p in q.placements:
+        if isinstance(p, Replicate):
+            kv_pl.append(Replicate())
+        elif isinstance(p, Shard) and p.dim in (0, 2):
+            kv_pl.append(Shard(p.dim))
+        else:
+            raise ValueError(f"flash attention over q laid out as "
+                             f"{q.placements}")
+    local = lambda t: replicate(t).redistribute(mesh, tuple(kv_pl)).to_local()
+    out = fn(q.to_local(), local(k), local(v), **kw)
     return DTensor.from_local(out, mesh, q.placements, run_check=False)
+
+
+def write_local(dst, src, start: int) -> None:
+    """``dst[:, start:start + n] = src`` for a DTensor ``dst`` (B, L, ...)
+    and ``src`` (B, n, ...) (a DTensor or a plain tensor taken as
+    replicated), on each rank's shard, in place: a KV cache write under
+    a mesh. ``src`` is laid out as ``dst`` (whole along dim 1); where
+    ``dst`` is cut along dim 1 (a long-context cache, the sequence over
+    the data ranks), each rank writes the part of [start, start + n)
+    that lies in its block."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = dst.device_mesh
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+               for p in dst.placements)
+    part = replicate(src).to(dst.dtype).redistribute(mesh, pl).to_local()
+    out = dst.to_local()
+    seq = _tp_dims(dst, 1)
+    off = shard_offset(mesh, seq, out.shape[1]) if seq else 0
+    n = part.shape[1]
+    lo, hi = max(start, off), min(start + n, off + out.shape[1])
+    if lo < hi:
+        out[:, lo - off:hi - off] = part[:, lo - start:hi - start]

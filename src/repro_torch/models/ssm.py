@@ -203,6 +203,7 @@ def mamba2_seq(params, x, cfg: ArchConfig, state=None, return_state=False):
     return out
 
 
+@_rows_under_mesh()
 def mamba2_step(params, x_t, state, cfg: ArchConfig, conv_buf=None):
     """One decode step. x_t (B, 1, D); state (B, H, P, N); conv_buf
     (B, 3, C). Returns (out (B, 1, D), state, conv_buf)."""
@@ -306,6 +307,7 @@ def mlstm_seq(params, x, cfg: ArchConfig, return_state: bool = False):
     return out
 
 
+@_rows_under_mesh()
 def mlstm_step(params, x_t, state, cfg: ArchConfig):
     """One recurrent step. state = (C (B, H, dk, dv), n (B, H, dk),
     m (B, H)); returns (out (B, 1, D), state)."""
@@ -390,6 +392,7 @@ def slstm_seq(params, x, cfg: ArchConfig, return_state: bool = False):
     return out
 
 
+@_rows_under_mesh()
 def slstm_step(params, x_t, state, cfg: ArchConfig):
     cd = cfg.cdtype
     u = (x_t @ params["w"].to(cd))[:, 0]

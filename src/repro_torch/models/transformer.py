@@ -425,14 +425,20 @@ class Model(nn.Module):
         VLM / audio families from ``batch``); returns (logits of the last
         position (B, 1, V), caches). ``pad`` ((B,) left-pad lengths) serves
         a ragged wave: row b's logical positions run -pad[b] .. S-1-pad[b]
-        and its pad slots are masked downstream."""
+        and its pad slots are masked downstream. Under a mesh (`use_rules`
+        over a DeviceMesh) the parameters, batch and caches are DTensors
+        (`launch.shardings.shard_caches`), and each layer's cache shard is
+        written in place."""
+        return bind(self._prefill)(batch, caches, pad)
+
+    def _prefill(self, batch, caches, pad):
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = self._with_positions(self._embed(tokens), 0)
         memory, mem_pos = self._encode_memory(batch)
         positions = self._positions(B, S, x.device)
         if pad is not None:
-            positions = positions - pad[:, None]
+            positions = positions - replicate(pad)[:, None]
         x, caches, _ = self._run_stack(x, positions=positions, memory=memory,
                                        memory_positions=mem_pos,
                                        caches=caches, pad=pad)
@@ -443,12 +449,18 @@ class Model(nn.Module):
         """token (B, 1); ``pos`` the current buffer position (cache slot),
         a Python int; ``memory`` / ``mem_pos`` from `_encode_memory` for
         the VLM / audio families. With ``pad``, row b's logical position is
-        pos - pad[b]. Returns (logits (B, 1, V), caches)."""
+        pos - pad[b]. Returns (logits (B, 1, V), caches). Under a mesh as
+        `prefill`."""
+        return bind(self._decode_step)(token, pos, caches, memory, mem_pos,
+                                       pad)
+
+    def _decode_step(self, token, pos, caches, memory, mem_pos, pad):
         B = token.shape[0]
         x = self._with_positions(self._embed(token), pos)
-        positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+        positions = replicate(torch.full((B, 1), pos, dtype=torch.int64,
+                                         device=x.device))
         if pad is not None:
-            positions = positions - pad[:, None]
+            positions = positions - replicate(pad)[:, None]
         x, caches, _ = self._run_stack(x, positions=positions, memory=memory,
                                        memory_positions=mem_pos,
                                        caches=caches, decode=True, pad=pad)

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import rng
+from repro_torch.models.sharding import bind
 from repro_torch.models.transformer import Model
 
 
@@ -41,21 +42,36 @@ def make_decode_step(model: Model, temperature: float = 0.0):
 
 @torch.no_grad()
 def generate(model: Model, batch, max_new: int, max_len: int,
-             temperature: float = 0.0, key=None):
+             temperature: float = 0.0, key=None, mesh=None):
     """Host-loop generation driver: (B, max_new) int32 tokens. ``batch``
     holds "tokens" (B, S) and, for the VLM / audio families,
     "patch_embeds" / "frames": their memory is encoded once for the decode
-    steps (the prefill encodes its own, as in the JAX package)."""
+    steps (the prefill encodes its own, as in the JAX package).
+
+    With ``mesh`` (a DeviceMesh whose rules are active, `use_rules`, and
+    over which the model's parameters lie, `launch.shardings.shard_params`)
+    the batch and the caches are laid out on it (`shard_batch`,
+    `shard_caches`) and prefill and decode run sharded; every rank samples
+    from the gathered logits and returns the whole tokens."""
     key = key if key is not None else rng.PRNGKey(0, model.device)
     B, S = batch["tokens"].shape
     caches = model.init_cache(B, max_len)
-    memory, mem_pos = model._encode_memory(batch)
-    step = make_decode_step(model, temperature)
+    place = lambda t: t
+    whole = lambda t: t
+    if mesh is not None:
+        from repro_torch.launch import shardings as SH
+        batch = SH.shard_batch(batch, mesh)
+        caches = SH.shard_caches(caches, model.cfg, mesh)
+        place = lambda t: SH.shard_batch({"t": t}, mesh)["t"]
+        whole = lambda t: t.full_tensor()
+    memory, mem_pos = bind(model._encode_memory)(batch)
     logits, caches = model.prefill(batch, caches)
-    tok = sample(logits, key, temperature)
+    tok = sample(whole(logits), key, temperature)
     out = [tok]
     for i in range(max_new - 1):
         key = rng.fold_in(key, i)
-        tok, logits, caches = step(tok, S + i, caches, key, memory, mem_pos)
+        logits, caches = model.decode_step(place(tok), S + i, caches, memory,
+                                           mem_pos)
+        tok = sample(whole(logits), key, temperature)
         out.append(tok)
     return torch.cat(out, dim=1)
