@@ -73,8 +73,8 @@ toolkit. Phases, in order; any failure exits non-zero:
                runs the per-tick `Simulator.tick` loop: 4 warm-up and 20
                timed ticks, each kernel of the path launched once a tick and
                no other, whose fired history must equal the graphs' over the
-               same ticks, and a 10-tick per-phase profile (the graphs have
-               no phase ranges). All timed runs run under CUDA sync-debug
+               same ticks, and a 10-tick replay marked by phase (the span
+               recorder) and profiled by kernel. All timed runs run under CUDA sync-debug
                mode "error"; planes finite; fired rate within 0.5x-2x of
                out_rate. Peak GiB with and without graphs. fused_blocked's
                and eager's fired histories must equal the fused path's over
@@ -85,9 +85,9 @@ toolkit. Phases, in order; any failure exits non-zero:
                spike times before tick 0 (merged_warm: no bump applies, so
                every fire of a full ring takes the overflow flush). No
                hand-written kernel may launch on either (counters at capture
-               and per tick, and the replay trace); the per-tick profile
-               times the merged row phase, the WTA, the overflow flush and
-               the patch; merged's fired history must equal the fused
+               and per tick, and the replay trace); the marked profile
+               puts the merged row phase in rows and the WTA, the overflow
+               flush and the patch in wta; merged's fired history must equal the fused
                path's over the first 20 ticks. Fires and overflow flushes
                per timed tick are counted from the fired history (a fire
                on a column whose ring holds 8 times flushes and empties
@@ -127,8 +127,9 @@ toolkit. Phases, in order; any failure exits non-zero:
                captured tick), then two timed runs of RODENT_TICKS
                (replays only, sync-debug "error"): host us/tick beside real
                time (1000) and `launch.roofline`'s bound for the tick,
-               drops, peak GiB; a PROFILE_TICKS per-tick profile by phase
-               (row, WTA, column, fan-out, the rest glue); and both kernels
+               drops, peak GiB; a PROFILE_TICKS-tick replay by phase
+               (the span recorder's marks: bucket, keys, rows, wta, cols,
+               fanout) and, profiled, by kernel; and both kernels
                timed at the full 32,000 HCUs on the Simulator's planes
                beside their function and 32-byte-sector bounds and
                time_cuda's floor.
@@ -1125,7 +1126,7 @@ def run_path(name, p, ext, kw):
     Per-tick: PER_TICK_WARM ticks, then PER_TICK_TICKS timed under
     sync-debug "error", each kernel launched once a tick, its fired
     history equal to the graphs' over the same ticks, then the per-phase
-    profile (`profile_ticks`). Peak GiB of each driver from a fresh
+    profile of replayed ticks on that Simulator (`profile_ticks`). Peak GiB of each driver from a fresh
     Simulator. A path of PREPARE has its hook applied to each new
     Simulator first. Returns (summary, the warm-up fired history, (the
     fired history of the warm-up and timed runs (numpy), for a merged
@@ -1484,92 +1485,58 @@ def profile_replay(name, sim, ext, expect, unprofiled, run=None):
             "kernel_us_per_tick": ours}
 
 
-# the phase functions of the tick, timed by name in the profile, and the
-# hand-written kernels each launches: a kernel launched through ctypes has
-# no torch operator above it, so the profiler does not count it inside the
-# phase's range, and its time is added to the phase's by name
-PHASES = (("repro_torch.core.engine", "worklist_lazy_rows",
-           ("fused_row_update", "worklist_row_update")),
-          ("repro_torch.core.hcu", "row_updates", ("row_update",)),
-          ("repro_torch.core.engine", "_column_worklist", ("fused_col_update",)),
-          ("repro_torch.core.engine", "column_updates_batched", ("col_update",)),
-          ("repro_torch.core.reference", "eager_tick", ()),
-          ("repro_torch.core.engine", "worklist_merged_rows", ()),
-          ("repro_torch.core.hcu", "periodic_update", ()),
-          ("repro_torch.core.merged", "overflow_flush", ()),
-          ("repro_torch.core.worklist", "patch_cells", ()),
-          ("repro_torch.core.network", "enqueue_spikes", ()))
-
-
 def profile_ticks(name, sim, ext, kernels):
-    """Device time of a path by kernel and by tick phase over 10 more ticks
-    of the per-tick driver (`Simulator.tick`: a graph replay runs no
-    Python, so it has no phase ranges); torch.profiler, each phase
-    function inside a `record_function` range of its name for the length
-    of the profile. Returns a summary; prints "not measured" where the
-    trace has no device time."""
-    import importlib
+    """Device time of a path by kernel and by tick phase over replayed
+    chunks of len(ext) ticks: the span recorder's marks
+    (`repro_torch.core.spans`) over two recorded replays (the first call
+    captures the recorded graph) give each phase's device us/tick; then
+    torch.profiler over one replay of the unrecorded graph (captured by
+    the call before it) gives the kernels and the top device and host
+    operations. Returns a summary; prints "not measured" where the trace
+    has no device time."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    def ranged(fn, label):
-        def wrapper(*a, **kw):
-            with record_function(label):
-                return fn(*a, **kw)
-        return wrapper
-
-    saved = []
-    for mod, fn, _ in PHASES:
-        m = importlib.import_module(mod)
-        saved.append((m, fn, getattr(m, fn)))
-        setattr(m, fn, ranged(getattr(m, fn), f"phase:{fn}"))
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for e in ext:
-                sim.tick(e)
-            torch.cuda.synchronize()
-    finally:
-        for m, fn, orig in saved:
-            setattr(m, fn, orig)
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import spans
+    n = len(ext)
+    with spans.record() as rec:
+        for _ in range(2):
+            sim.run(ext)
+        torch.cuda.synchronize()
+    marked = rec.summary()
+    phases = marked["phase_us"] or {}
+    sim.run(ext)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sim.run(ext)
+        torch.cuda.synchronize()
     dev_t = lambda e, attr: getattr(e, f"{attr}device_time_total",
                                     getattr(e, f"{attr}cuda_time_total", 0))
     avgs = prof.key_averages()
-    is_phase = lambda e: e.key.startswith("phase:")
-    # kernel-level rows only: an operator's row also sums its kernels'
-    # time, and a phase range also has a row on the device timeline (its
-    # span, idle gaps included)
+    # kernel-level rows only: an operator's row also sums its kernels' time
     rows = [(e.key, dev_t(e, "self_"), e.count) for e in avgs
-            if e.device_type == DeviceType.CUDA and dev_t(e, "self_") > 0
-            and not is_phase(e)]
-    n = len(ext)
+            if e.device_type == DeviceType.CUDA and dev_t(e, "self_") > 0]
     if not rows:
         print(f"{name} profile: device time not measured (no CUDA activity "
               "in the trace)")
-        return {"device_busy_us_per_tick": None}
+        return {"device_busy_us_per_tick": None,
+                "phase_device_us_per_tick": phases}
     total = sum(r[1] for r in rows)
     ours = {k: sum(r[1] for r in rows if tag in r[0]) / n
-            for k, tag in KERNEL_TAGS.items()}
-    # a phase's host-side range sums the device time of the torch ops'
-    # kernels inside it; its hand-written kernels are added by name
-    launched = {fn: ks for _, fn, ks in PHASES}
-    phases = {}
-    for e in avgs:
-        if is_phase(e) and e.device_type == DeviceType.CPU:
-            fn = e.key[len("phase:"):]
-            phases[fn] = (dev_t(e, "") / n
-                          + sum(ours[k] for k in launched[fn]))
-    ours = {k: ours[k] for k in kernels}
-    host = sorted((e for e in avgs if e.device_type == DeviceType.CPU
-                   and not is_phase(e)), key=lambda e: -e.self_cpu_time_total)
+            for k, tag in KERNEL_TAGS.items() if k in kernels}
+    host = sorted((e for e in avgs if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
     host_total = sum(e.self_cpu_time_total for e in host) / n
-    print(f"{name} profile over {n} ticks of the per-tick driver (the "
-          f"graphs have no phase ranges): device busy {total / n:.1f} "
-          f"us/tick in {sum(r[2] for r in rows) / n:.0f} device ops/tick"
+    print(f"{name} profile over {n} replayed ticks: device busy "
+          f"{total / n:.1f} us/tick in {sum(r[2] for r in rows) / n:.0f} "
+          f"device ops/tick"
           + "".join(f"; {k} {v:.1f} us/tick" for k, v in ours.items())
-          + "; phases (device us/tick of all their kernels) "
-          + ", ".join(f"{k} {v:.1f}" for k, v in phases.items()))
+          + "; phases (device us/tick by the recorder's marks, 2 unprofiled "
+          "replays) " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
+          + f"; between ticks {marked['between_us'] or 0:.1f}, between "
+          f"replays {marked['replay_gap_us'] or 0:.1f}, marked tick "
+          f"{marked['marked_tick_us'] or 0:.1f}")
     for key, t, c in sorted(rows, key=lambda r: -r[1])[:6]:
         print(f"  device {t / n:9.1f} us/tick {c / n:6.1f}/tick  {key[:80]}")
     print(f"  host ops' self time {host_total:.1f} us/tick (profiled), top:")
@@ -1578,7 +1545,8 @@ def profile_ticks(name, sim, ext, kernels):
               f"{e.count / n:6.1f}/tick  {e.key[:60]}")
     return {"device_busy_us_per_tick": total / n,
             "device_ops_per_tick": sum(r[2] for r in rows) / n,
-            "kernel_us_per_tick": ours, "phase_device_us_per_tick": phases}
+            "kernel_us_per_tick": ours, "phase_device_us_per_tick": phases,
+            "marked_tick_us": marked["marked_tick_us"]}
 
 
 # flash attention: name -> (B, H, Kv, Sq, slots, hd, dtype, flash kwargs),
@@ -2452,7 +2420,8 @@ def phase_rodent(report, smi):
     and integer leaves bit for bit); RODENT_TICKS ticks through the graphs
     that capture, then two timed runs of RODENT_TICKS (replays only) beside
     real time and the roofline bound; a per-phase profile of
-    PROFILE_TICKS per-tick ticks; the kernels timed at the full size."""
+    PROFILE_TICKS replayed ticks (`profile_ticks`); the kernels timed at
+    the full size."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import Simulator
@@ -2563,14 +2532,11 @@ def phase_rodent(report, smi):
     prof = profile_ticks("rodent", sim, ext[lo:lo + PROFILE_TICKS], expect)
     phases = prof.get("phase_device_us_per_tick") or {}
     busy = prof.get("device_busy_us_per_tick")
-    if busy is not None:
-        glue = busy - sum(phases.values())
-        print(f"rodent phases (device us/tick): row "
-              f"{phases.get('worklist_lazy_rows', 0):.1f}, WTA "
-              f"{phases.get('periodic_update', 0):.1f}, column "
-              f"{phases.get('_column_worklist', 0):.1f}, fan-out "
-              f"{phases.get('enqueue_spikes', 0):.1f}, glue {glue:.1f} "
-              f"(of {busy:.1f} busy)")
+    if busy is not None and phases:
+        print(f"rodent phases (device us/tick, marked): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
+              + f"; their sum {sum(phases.values()):.1f} of a marked tick "
+              f"of {prof['marked_tick_us']:.1f} ({busy:.1f} busy, profiled)")
     timing = time_rodent_kernels(sim, p, dev)
     del sim, ext
     torch.cuda.empty_cache()

@@ -60,6 +60,7 @@ from repro_torch.core import merged as M
 from repro_torch.core import network as N
 from repro_torch.core import reference
 from repro_torch.core import rng
+from repro_torch.core import spans
 from repro_torch.core import worklist as WL
 from repro_torch.core.device import resolve_device
 from repro_torch.core.params import BCPNNParams
@@ -261,6 +262,7 @@ def _merged_worklist_update(hcus: H.HCUState, jring, rows, t, keys,
     (overflow flush, same-tick patch, ring push, Zj bump), every plane
     access in the stored layout. Returns (hcus', jring', fired)."""
     hcus, w_rows, c = worklist_merged_rows(hcus, jring, rows, t, p, layout)
+    spans.mark("rows")
     hcus, fired = H.periodic_update(hcus, w_rows, c["counts"], keys, p)
     hcus, jring = M.merged_tail(hcus, jring, fired, c["rows_u"], c["zi_new"],
                                 t, p, layout)
@@ -303,6 +305,7 @@ def _apply_columns(split):
     state, fired, h_idx, j_idx, n_drop, col = split
     if col is not None:
         state = state._replace(hcus=col(state.hcus))
+    spans.mark("cols")
     return state, fired, h_idx, j_idx, n_drop
 
 
@@ -341,6 +344,7 @@ class DenseBackend(NamedTuple):
         col = None
         if self.mode == "eager":
             hb, fired = reference.eager_tick(hb, rows, t, keys, p)
+            spans.mark("rows")
         elif self.mode == "merged":
             hb, jring, fired = M.hcu_tick_merged(hb, state.jring, rows, t,
                                                  keys, p)
@@ -350,6 +354,7 @@ class DenseBackend(NamedTuple):
         else:
             raise ValueError(f"unknown dense mode {self.mode!r}")
         h_idx, j_idx, n_drop = N.select_fired(fired, cap)
+        spans.mark("wta")
         if self.mode == "lazy":
             col = lambda hc: L.flat_state(column_updates_batched(
                 L.batched_state(hc, n), h_idx, j_idx, t, p))
@@ -392,13 +397,16 @@ class WorklistBackend(NamedTuple):
             hcus, jring, fired = _merged_worklist_update(
                 state.hcus, state.jring, rows, t, keys, p, self.layout)
             h_idx, j_idx, n_drop = N.select_fired(fired, cap)
+            spans.mark("wta")
             return (state._replace(hcus=hcus, jring=jring), fired, h_idx,
                     j_idx, n_drop, None)
         hcus, w_rows, c = worklist_lazy_rows(state.hcus, rows, t, p,
                                              fused=self.fused,
                                              layout=self.layout)
+        spans.mark("rows")
         hcus, fired = H.periodic_update(hcus, w_rows, c["counts"], keys, p)
         h_idx, j_idx, n_drop = N.select_fired(fired, cap)
+        spans.mark("wta")
         col = worklist_col_dispatch(self.fused_cols, h_idx, j_idx, t, p, n,
                                     self.layout)
         return state._replace(hcus=hcus), fired, h_idx, j_idx, n_drop, col
@@ -453,18 +461,25 @@ def tick(state: N.NetworkState, conn: N.Connectivity, ext_rows,
                       HCU fired?"; taken for its signature only: the port
                       runs the pass every tick, its padding entries
                       writing nothing, which gives the same bits.
+
+    Inside a chunk that `spans.marking` marks, the tick marks its start
+    and the end of each phase (`spans.MARKS`); the split route's gathers
+    and send fall in the column phase, its receive in the fan-out.
     """
     n = state.delay_rows.shape[0]
     t = state.t + 1
     cap = cap_fire or max(2, int(0.35 * n) + 1)
 
     # 1. consume this tick's delay bucket and merge with external input
+    spans.mark("tick.start")
     state, bucket = N.consume_bucket(state, t, p)
     rows = torch.cat([bucket, ext_rows], dim=1)
+    spans.mark("bucket")
 
     # 2. plane update (rows + WTA + columns), the JAX package's RNG stream
     k_t = rng.fold_in(state.base_key, t)
     keys = rng.fold_in(k_t, gid_base + torch.arange(n, device=rows.device))
+    spans.mark("keys")
     split = route is not None and hasattr(route, "send")
     if split:
         state, fired, h_idx, j_idx, n_drop, col = be.plane_update_split(
@@ -487,10 +502,12 @@ def tick(state: N.NetworkState, conn: N.Connectivity, ext_rows,
         state, inflight = route.send(state, dest_h, dest_r, dly, valid, p, n)
         if col is not None:
             state = state._replace(hcus=col(state.hcus))
+        spans.mark("cols")
         state = route.recv(state, inflight, p, n)
     else:
         state = (route or N.enqueue_spikes)(state, dest_h, dest_r, dly,
                                             valid, p, n)
+    spans.mark("fanout")
     return state, fired
 
 

@@ -28,6 +28,7 @@ from repro_torch.core.params import BCPNNParams
 from repro_torch.core.traces import ZEP, bias, decay_zep, make_coeffs
 from repro_torch.core import layout as L
 from repro_torch.core import rng
+from repro_torch.core import spans
 from repro_torch.kernels import ops
 
 
@@ -325,6 +326,7 @@ def hcu_tick_pre(st: HCUState, rows, now, key, p: BCPNNParams):
     pay for it): see `engine.column_updates_batched`."""
     st = _decay_jvec(st, p)
     st, w_rows, counts, _ = row_updates(st, rows, now, p)
+    spans.mark("rows")
     return periodic_update(st, w_rows, counts, key, p)
 
 

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.core import hcu as H
 from repro_torch.core import layout as L
+from repro_torch.core import spans
 from repro_torch.core import worklist as WL
 from repro_torch.core.params import BCPNNParams
 from repro_torch.core.traces import ZEP, bayesian_weight, decay_zep
@@ -231,6 +232,7 @@ def hcu_tick_merged(st: H.HCUState, ring, rows, now, key, p: BCPNNParams):
     n = rows.shape[0]
     st = H._decay_jvec(st, p)
     st, w_rows, counts, rows_u = row_updates_merged(st, ring, rows, now, p)
+    spans.mark("rows")
     st, fired_j = H.periodic_update(st, w_rows, counts, key, p)
     # post-increment Zi(now) of this tick's rows (written just above)
     safe = torch.clamp(rows_u, max=p.rows - 1).long()

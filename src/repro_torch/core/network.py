@@ -49,6 +49,7 @@ from repro_torch.core import hcu as H
 from repro_torch.core import layout as L
 from repro_torch.core import merged as M
 from repro_torch.core import rng
+from repro_torch.core import spans
 from repro_torch.core.params import BCPNNParams
 
 
@@ -338,10 +339,22 @@ def network_run(state: NetworkState, conn: Connectivity, ext: torch.Tensor,
     if T == 0:
         return state, torch.zeros((0, n), dtype=torch.int32, device=dev)
     if dev.type == "cpu":
+        rec = spans.recorder()
         fired = torch.empty((T, n), dtype=torch.int32)
         for i in range(0, T, chunk):
-            state = _run_ticks(state, conn, ext[i:i + chunk], p, be, cap_fire,
-                               fired[i:i + chunk])
+            L = min(chunk, T - i)
+            f = torch.empty((L, n), dtype=torch.int32)
+            with spans.span("chunk", ticks=L):
+                with spans.span("chunk.stage"):
+                    e = ext[i:i + L]
+                with spans.span("chunk.replay") as sp:
+                    marks = None if rec is None else spans.Marks(L, dev)
+                    with spans.marking(marks):
+                        state = _run_ticks(state, conn, e, p, be, cap_fire, f)
+                    if marks is not None:
+                        rec.take(marks, sp)
+                with spans.span("chunk.out"):
+                    fired[i:i + L].copy_(f)
         return state, fired
     graphs = ChunkGraphs() if graphs is None else graphs
     return graphs.run(state, conn, ext.to(dev, torch.int32), p, be, cap_fire,
@@ -356,6 +369,8 @@ class _Chunk(NamedTuple):
     graph: torch.cuda.CUDAGraph
     ext: torch.Tensor        # (L, H, A_ext) static input
     fired: torch.Tensor      # (L, H) static fired rows
+    marks: "spans.Marks | None"   # a recorded graph's marks, rewritten
+                                  # by every replay
 
 
 def _leaves(tree):
@@ -449,13 +464,21 @@ class ChunkGraphs:
       wrappers' launches: a capture records each launch into its graph
       and counts it there; a replay runs what was recorded and counts
       nothing (a device trace of a replay counts what ran).
+    * Recorded graphs (`spans`): a chunk captured while a recorder is on
+      holds the tick's phase marks and is keyed apart, by (length, drive
+      width, recorded), so the two settings never replay each other's
+      graph and share the pool; after each recorded replay its marks are
+      copied into the recorder's ring in stream order. ``chunk`` spans
+      (``chunk.stage``, ``chunk.replay``, ``chunk.out``) and
+      ``chunk.capture`` mark the host's part.
 
-    ``captured`` maps each chunk length to its graph, in capture order
-    (each kept with ``keep_graph=True``, so ``raw_cuda_graph()`` can be
-    inspected). ``pool`` (a `torch.cuda.graph_pool_handle`) shares one
-    memory pool between several ChunkGraphs whose graphs are replayed one
-    after another on one stream, as the recall server's lanes are; by
-    default each has its own."""
+    ``captured`` maps each chunk length to its unrecorded graph, in
+    capture order (each kept with ``keep_graph=True``, so
+    ``raw_cuda_graph()`` can be inspected). ``pool`` (a
+    `torch.cuda.graph_pool_handle`) shares one memory pool between
+    several ChunkGraphs whose graphs are replayed one after another on one
+    stream, as the recall server's lanes are; by default each has its
+    own."""
 
     def __init__(self, pool=None):
         self._shared_pool = pool
@@ -469,7 +492,8 @@ class ChunkGraphs:
 
     @property
     def captured(self) -> dict[int, torch.cuda.CUDAGraph]:
-        return {L: c.graph for (L, _), c in self._chunks.items()}
+        return {L: c.graph for (L, _, recorded), c in self._chunks.items()
+                if not recorded}
 
     def run(self, state: NetworkState, conn: Connectivity, ext, p, be,
             cap_fire, chunk: int, tick_kw: dict | None = None):
@@ -484,19 +508,28 @@ class ChunkGraphs:
             self.clear()
             self._key, self._carry, self._conn = key, state, conn
         T, n, A_ext = ext.shape
+        rec = spans.recorder()
         out = torch.empty((T, n), dtype=torch.int32, device=ext.device)
         for i in range(0, T, chunk):
             L = min(chunk, T - i)
-            c = self._chunks.get((L, A_ext))
+            c = self._chunks.get((L, A_ext, rec is not None))
             if c is None:
-                c = self._capture(L, A_ext, p, be, cap_fire, tick_kw)
-            c.ext.copy_(ext[i:i + L])
-            c.graph.replay()
-            out[i:i + L].copy_(c.fired)
+                with spans.span("chunk.capture", ticks=L):
+                    c = self._capture(L, A_ext, p, be, cap_fire, tick_kw,
+                                      rec is not None)
+            with spans.span("chunk", ticks=L):
+                with spans.span("chunk.stage"):
+                    c.ext.copy_(ext[i:i + L])
+                with spans.span("chunk.replay") as sp:
+                    c.graph.replay()
+                    if c.marks is not None:
+                        rec.take(c.marks, sp)
+                with spans.span("chunk.out"):
+                    out[i:i + L].copy_(c.fired)
         return state, out
 
     def _capture(self, L: int, A_ext: int, p: BCPNNParams, be,
-                 cap_fire, tick_kw: dict) -> _Chunk:
+                 cap_fire, tick_kw: dict, recorded: bool) -> _Chunk:
         carry, conn = self._carry, self._conn
         dev = carry.t.device
         n = carry.delay_rows.shape[0]
@@ -504,6 +537,7 @@ class ChunkGraphs:
         _load_kernels(p, be, cap_fire, A_ext, side)
         ext = torch.full((L, n, A_ext), p.rows, dtype=torch.int32, device=dev)
         fired = torch.empty((L, n), dtype=torch.int32, device=dev)
+        marks = spans.Marks(L, dev) if recorded else None
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -511,8 +545,9 @@ class ChunkGraphs:
         with torch.cuda.stream(side):
             graph.capture_begin(pool=self._pool)
             try:
-                final = _run_ticks(carry, conn, ext, p, be, cap_fire, fired,
-                                   tick_kw)
+                with spans.marking(marks):
+                    final = _run_ticks(carry, conn, ext, p, be, cap_fire,
+                                       fired, tick_kw)
                 copy_into(carry, final)
                 del final
             except BaseException:
@@ -524,8 +559,8 @@ class ChunkGraphs:
             graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(side)
         graph.instantiate()
-        c = _Chunk(graph, ext, fired)
-        self._chunks[(L, A_ext)] = c
+        c = _Chunk(graph, ext, fired, marks)
+        self._chunks[(L, A_ext, recorded)] = c
         return c
 
 

@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import network as N
+from repro_torch.core import spans
 from repro_torch.runtime.resilience import ServingHealthMonitor
 
 
@@ -81,14 +82,15 @@ def _serve_step(stacked, conn, ext, p, kw, graphs=None):
     n = stacked.delay_rows.shape[1]
     fired = torch.empty((S, T, n), dtype=torch.int32, device=ext.device)
     for lane in range(S):
-        view = N.take_session(stacked, lane)
-        new, f = N.network_run(view, conn, ext[lane], p, chunk=T,
-                               graphs=None if graphs is None else graphs[lane],
-                               **kw)
-        # the CPU driver returns new tensors for the leaves a tick
-        # replaces; the CUDA graphs copy them back into the views themselves
-        N.copy_into(view, new)
-        fired[lane].copy_(f)
+        with spans.span("serve.lane", lane=lane):
+            view = N.take_session(stacked, lane)
+            new, f = N.network_run(
+                view, conn, ext[lane], p, chunk=T,
+                graphs=None if graphs is None else graphs[lane], **kw)
+            # the CPU driver returns new tensors for the leaves a tick
+            # replaces; the CUDA graphs copy them back into the views
+            N.copy_into(view, new)
+            fired[lane].copy_(f)
     return fired
 
 
@@ -286,7 +288,45 @@ class BCPNNRecallServer:
     # -- engine step ---------------------------------------------------------
     def step(self) -> list[RecallRequest]:
         """Admit, advance every lane `step_ticks` ticks, retire finished
-        sessions. Returns the sessions completed by this step."""
+        sessions. Returns the sessions completed by this step. Its host
+        spans (`spans`): ``serve.step`` around ``serve.admit``,
+        ``serve.stage``, ``serve.lanes`` (a ``serve.lane`` each),
+        ``serve.read`` and ``serve.retire``."""
+        with spans.span("serve.step", step=self.steps):
+            with spans.span("serve.admit") as sp:
+                admitted = self._admit()
+                if sp is not None:
+                    sp.attrs["admitted"] = admitted
+            if not any(r is not None for r in self.active):
+                return []
+            with spans.span("serve.stage"):
+                ext = torch.from_numpy(self._stage()).to(self.device)
+            captured = self.captures
+            self.monitor.chunk_start(self.step_ticks)
+            t_step = time.perf_counter()
+            with spans.span("serve.lanes"):
+                fired = _serve_step(self.stacked, self.conn, ext, self.p,
+                                    self._kw, self.graphs)
+            with spans.span("serve.read"):
+                st = self.stacked
+                # the step's one host read (it waits for the device): the
+                # fired rows and the three drop counters of every lane
+                out = torch.cat([fired.reshape(-1), st.drops_in,
+                                 st.drops_fire, st.drops_route]).cpu().numpy()
+            if self.captures != captured:
+                self.capture_steps.append({
+                    "step": self.steps, "graphs": self.captures - captured,
+                    "seconds": time.perf_counter() - t_step})
+            self.steps += 1
+            with spans.span("serve.retire") as sp:
+                done_now = self._retire(out)
+                if sp is not None:
+                    sp.attrs["retired"] = {r.rid: r.lane for r in done_now}
+            return done_now
+
+    def _admit(self) -> dict:
+        """Take queued requests into the free lanes (an in-place copy of
+        the template into each). Returns {rid: lane} of those admitted."""
         now = self.clock()
         free = [i for i, r in enumerate(self.active) if r is None]
         newly = self.queue.take(len(free))
@@ -304,9 +344,11 @@ class BCPNNRecallServer:
                 self._winners[lane] = -1
                 self._traj[lane] = []
             N.write_sessions(self.stacked, self.template, lanes)
-        if not any(r is not None for r in self.active):
-            return []
+        return {req.rid: req.lane for req in newly}
 
+    def _stage(self) -> np.ndarray:
+        """The step's (S, T, H, W) drive: each active lane's cue frame on
+        every tick, silence on the free lanes."""
         ext = np.full((self.slots, self.step_ticks, self.n_hcu,
                        self.ext_width), self.p.rows, np.int32)
         for lane, req in enumerate(self.active):
@@ -317,22 +359,12 @@ class BCPNNRecallServer:
             mask = np.asarray(req.cue_mask, bool)
             frame[mask, 0] = np.asarray(req.cue_rows, np.int32)[mask]
             ext[lane] = frame[None]
-        captured = self.captures
-        self.monitor.chunk_start(self.step_ticks)
-        t_step = time.perf_counter()
-        fired = _serve_step(self.stacked, self.conn,
-                            torch.from_numpy(ext).to(self.device), self.p,
-                            self._kw, self.graphs)
-        st = self.stacked
-        # the step's one host read (it waits for the device): the fired
-        # rows and the three drop counters of every lane
-        out = torch.cat([fired.reshape(-1), st.drops_in, st.drops_fire,
-                         st.drops_route]).cpu().numpy()
-        if self.captures != captured:
-            self.capture_steps.append({
-                "step": self.steps, "graphs": self.captures - captured,
-                "seconds": time.perf_counter() - t_step})
-        self.steps += 1
+        return ext
+
+    def _retire(self, out: np.ndarray) -> list[RecallRequest]:
+        """From the step's host read ``out`` (fired rows, then the drop
+        counters): each lane's winners and trajectory; the sessions that
+        converged or ran out of budget leave their lanes. Returns them."""
         k = self.slots * self.step_ticks * self.n_hcu
         fired = out[:k].reshape(self.slots, self.step_ticks, self.n_hcu)
         d_in, d_fire, d_route = out[k:].reshape(3, self.slots)
