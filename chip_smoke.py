@@ -27,7 +27,16 @@ toolkit. Phases, in order; any failure exits non-zero:
                worklist kernel reads the slot-ordered worklist through its
                compaction (order, nv) and the (H, C) j-vectors in place.
                The (xr, 4) tile with the least row + column kernel time is
-               the tile phase 5's fused_blocked path runs.
+               the tile phase 5's fused_blocked path runs. Then the
+               fan-out's enqueue (`kernels.spike_enqueue`, which replaces
+               no TPU kernel) against `network.enqueue_spikes_plain` at
+               the benchmark cells' shapes (rodent: 32,000 HCUs, 11,201
+               slots of 100 messages, 3,200 fired; human256's drive tick;
+               its recall tick, every HCU fired at mean delay 1.5):
+               queues, counts and drops bit for bit, one launch counted a
+               call; kernel, plain version and the queue's copy alone each
+               captured in a CUDA graph and timed over its replays, beside
+               the byte bound.
   4. fixtures — the head fixtures of tests/fixtures on the card through the
                kernels, each under the flags it was captured with
                (head_lazy_worklist in all four fused / fused_cols
@@ -58,7 +67,9 @@ toolkit. Phases, in order; any failure exits non-zero:
                capture every chunk length the timed ticks replay, one call a
                capture (each first call timed, each graph's nodes counted),
                and the wrappers' launch counters must show one launch of
-               each kernel of the path per captured tick; two timed runs
+               each kernel of the path per captured tick (every path's
+               fan-out launches the enqueue once a tick, the eager and
+               merged paths nothing else); two timed runs
                back to back replay only (host µs/tick, the device's span by
                CUDA events and the SM clock sampled by nvidia-smi), the
                counters required to stay 0; a device-only trace of one more
@@ -84,8 +95,9 @@ toolkit. Phases, in order; any failure exits non-zero:
                cold start (merged) and from a state whose rings each hold 8
                spike times before tick 0 (merged_warm: no bump applies, so
                every fire of a full ring takes the overflow flush). No
-               hand-written kernel may launch on either (counters at capture
-               and per tick, and the replay trace); the marked profile
+               plane kernel may launch on either, only the enqueue once a
+               tick (counters at capture and per tick, and the replay
+               trace); the marked profile
                puts the merged row phase in rows and the WTA, the overflow
                flush and the patch in wta; merged's fired history must equal the fused
                path's over the first 20 ticks. Fires and overflow flushes
@@ -123,8 +135,8 @@ toolkit. Phases, in order; any failure exits non-zero:
                through a graph: fired history and integer leaves bit for
                bit (`ext_block`'s Poisson input, lambda 4, width 8);
                RODENT_TICKS ticks through the graphs (chunks of 128, the
-               launch counters from 0 showing both fused kernels once a
-               captured tick), then two timed runs of RODENT_TICKS
+               launch counters from 0 showing both fused kernels and the
+               enqueue once a captured tick), then two timed runs of RODENT_TICKS
                (replays only, sync-debug "error"): host us/tick beside real
                time (1000) and `launch.roofline`'s bound for the tick,
                drops, peak GiB; a PROFILE_TICKS-tick replay by phase
@@ -223,16 +235,17 @@ toolkit. Phases, in order; any failure exits non-zero:
                    benchmark's dynamics, `cap_fire=256`) on a Simulator
                    trained by `train_assoc`: 48 sessions of budget 48, each
                    a 0.6 partial cue of a trained pattern, paced against
-                   the queue. The fused row and column kernels launch once
-                   a lane-tick at the first step's captures and nothing
-                   else does; no step after the first captures; the first
+                   the queue. The fused row and column kernels and the
+                   enqueue launch once a lane-tick at the first step's
+                   captures and nothing else does; no step after the first captures; the first
                    two sessions to finish, re-run alone through
                    `Simulator.run(chunk=12)` from the template, equal
                    their lanes bit for bit (fired history and every leaf).
                    One more step, profiled, must leave every lane's tick
                    counter SERVE_STEP ticks past the template's on the
                    device, and each lane's graph must hold SERVE_STEP
-                   kernel nodes of each fused kernel (driver API); the
+                   kernel nodes of each fused kernel and of the enqueue's
+                   place kernel (driver API); the
                    trace's count of kernels is printed, not checked (it
                    can lose a record: tools/serve_profile_probe.py).
                    Prints qps, p50 / p95 service and sojourn ms, the
@@ -244,8 +257,8 @@ toolkit. Phases, in order; any failure exits non-zero:
                    process) at human_scale(256), fused, flat,
                    `lossless_route_config`: 100 ticks that capture one
                    100-tick graph with the exchange's all_to_all inside
-                   (the fused kernels counted once a captured tick, no
-                   other kernel), then 100 replayed ticks under sync-debug
+                   (the fused kernels and the enqueue counted once a
+                   captured tick, no other kernel), then 100 replayed ticks under sync-debug
                    "error", host clock ending in the fired rows' host read;
                    the fired history of the 200 ticks and every state leaf
                    bit for bit a local `Simulator.run` at cap_fire 256; a
@@ -354,15 +367,15 @@ toolkit. Phases, in order; any failure exits non-zero:
                serve_lm_torch.py (--attn pallas_flash --prompt-len 128) and
                train_lm_torch.py (--steps 60) on CUDA, as subprocesses
                started together: each ends in its OK line, and its launch
-               counters show the dense backend's block kernels (the BCPNN
-               examples), flash through `flash_mma_kernel` (serving), none
-               (training).
+               counters show the dense backend's block kernels and the
+               enqueue (the BCPNN examples), flash through
+               `flash_mma_kernel` (serving), none (training).
  14. report  — one JSON line of the kernels (with each BCPNN kernel's
                launches on the phase 8 paths, counted at capture, on
                the sharded paths of phase 9, on the rodent path (at
                capture) and in the examples under ``launches_by_path``,
                and the fused kernels' rodent-width times under
-               ``rodent``;
+               ``rodent``; the enqueue's three shapes under ``by_shape``;
                flash's launches are the LM serving runs' of phases 6b, 7,
                10 and 12c and the serving example's, by model under
                ``launches_by_path``, beside phase 11b's and 12's training
@@ -731,7 +744,133 @@ def phase_kernels(p, dev):
     report.append(check_block("col_update", cb_call, flush, cb_bytes,
                               K * R * OPS_PER_CELL, "col_update_kernel_call"))
     print(f"column blocks: {K} entries ({nf} fired) of {R} rows")
+    report.append(check_enqueue(flush, dev))
     return report, dict(LAYOUTS)[best]
+
+
+def enqueue_shapes():
+    """The fan-out's enqueue at the benchmark cells' shapes: name ->
+    (params, fired-batch slots, fired slots). The drive ticks size the
+    fired batch at 0.35 H + 1 and fire out_rate H (rodent: 11,201 slots
+    of 100 messages, 3,200 fired); the recall server's batch holds every
+    HCU, and every HCU fires."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.params import human_scale
+    drive = lambda p: (p, int(0.35 * p.n_hcu) + 1, round(p.out_rate * p.n_hcu))
+    recall = serve_params()
+    return {"rodent.drive4": drive(get_config("bcpnn-rodent")),
+            "human256.drive4": drive(human_scale(n_hcu=256)),
+            "human256.recall": (recall, recall.n_hcu, recall.n_hcu)}
+
+
+def enqueue_inputs(p, slots, live, gen, dev):
+    """A state whose buckets hold 0-5 entries each, and one tick's fan-out
+    of ``slots`` fired-batch slots (the first ``live`` fired): uniform
+    destination HCUs and rows, the connectivity's truncated geometric
+    delays at p.mean_delay. Returns (state, (dest_h, dest_row, delay,
+    valid))."""
+    import torch
+    from repro_torch.core import network as N
+    n, D, A, F = p.n_hcu, p.max_delay, p.active_queue, p.fanout
+    m = slots * F
+    i32 = dict(generator=gen, device=dev, dtype=torch.int32)
+    count = torch.randint(0, 6, (n, D), **i32)
+    rows = torch.randint(0, p.rows, (n, D, A), **i32)
+    rows = torch.where(torch.arange(A, device=dev) < count[..., None], rows,
+                       p.rows)
+    one = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    st = N.NetworkState(hcus=None, delay_rows=rows, delay_count=count,
+                        t=one(12_345), drops_in=one(0), drops_fire=one(0),
+                        base_key=None)
+    lam = 1.0 / max(p.mean_delay - 1.0, 1e-3)
+    u = torch.rand(m, generator=gen, device=dev)
+    geo = torch.floor(torch.log1p(-u) / -lam).to(torch.int32)
+    delay = torch.clamp(1 + geo, 1, D - 1).to(torch.int32)
+    valid = (torch.arange(slots, device=dev) < live).repeat_interleave(F)
+    return st, (torch.randint(0, n, (m,), **i32),
+                torch.randint(0, p.rows, (m,), **i32), delay, valid)
+
+
+def graphed(fn):
+    """``fn`` captured alone in a CUDA graph after one warm call on a side
+    stream; returns the graph's replay (the tick replays the enqueue in a
+    graph too)."""
+    import torch
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return g.replay
+
+
+def check_enqueue(flush, dev):
+    """Phase 3's check of the fan-out's enqueue at each shape of
+    `enqueue_shapes`: `kernels.spike_enqueue` through
+    `network.enqueue_spikes` (one launch counted a call) against
+    `network.enqueue_spikes_plain`, queues, counts and drops bit for bit;
+    then the kernel, the plain version and the queue's copy alone, each
+    captured in a graph, timed over replays (`time_cuda`) beside the
+    function's byte bound: the queue copied (read and written), a byte of
+    valid flag a message, 16 bytes a valid message (dest_h, delay and
+    dest_row read, its slot written), 8 a key (its count read and
+    written). Returns the report's entry: the human256 drive shape, every
+    shape under ``by_shape``."""
+    import torch
+    from repro_torch.core import network as N
+    from repro_torch.kernels import spike_enqueue as SE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    floor = floor_ms(flush)
+    by = {}
+    for name, (p, slots, live) in enqueue_shapes().items():
+        st, msgs = enqueue_inputs(p, slots, live, gen, dev)
+        n, D, A = p.n_hcu, p.max_delay, p.active_queue
+        plain = N.enqueue_spikes_plain(st, *msgs, p, n)
+        before = SE.launches["spike_enqueue"]
+        kern = N.enqueue_spikes(st, *msgs, p, n)
+        if SE.launches["spike_enqueue"] != before + 1:
+            fail(f"spike_enqueue {name}: the call counted "
+                 f"{SE.launches['spike_enqueue'] - before} launches")
+        for f in ("delay_rows", "delay_count", "drops_in"):
+            if not torch.equal(getattr(kern, f), getattr(plain, f)):
+                fail(f"spike_enqueue {name}: {f} differs from the plain "
+                     f"version's")
+        M, valid = msgs[0].numel(), int(msgs[3].sum())
+        keys = msgs[0].long() * D + (int(st.t) + msgs[2].long()) % D
+        per_key = torch.bincount(keys[msgs[3]], minlength=n * D)
+        nbytes = 2 * n * D * A * 4 + M + 16 * valid + 8 * n * D
+        rec = {"messages": M, "valid": valid,
+               "largest_key": int(per_key.max()) if valid else 0,
+               "keys_past_16": int((per_key > 16).sum()),
+               "drops": int(kern.drops_in), "bytes": nbytes,
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "ms": time_cuda(graphed(
+                   lambda: N.enqueue_spikes(st, *msgs, p, n)), flush),
+               "plain_ms": time_cuda(graphed(
+                   lambda: N.enqueue_spikes_plain(st, *msgs, p, n)), flush),
+               "copy_ms": time_cuda(graphed(st.delay_rows.clone), flush),
+               "floor_ms": floor}
+        by[name] = rec
+        print(f"spike_enqueue [{name}]: {n} HCUs, {slots} slots x {p.fanout}"
+              f" = {M} messages, {valid} valid (largest key "
+              f"{rec['largest_key']}, {rec['keys_past_16']} keys past 16), "
+              f"{rec['drops']} drops: "
+              f"bit for bit the plain version; {rec['ms']:.5f} ms (plain "
+              f"{rec['plain_ms']:.5f}, the queue's copy alone "
+              f"{rec['copy_ms']:.5f}), bound {rec['bound_ms']:.5f} ms "
+              f"({nbytes} bytes), time_cuda's floor {floor:.5f} ms")
+        del st, msgs, plain, kern
+    torch.cuda.empty_cache()
+    h = by["human256.drive4"]
+    e = entry("spike_enqueue", {"all": 0.0}, h["ms"], h["plain_ms"],
+              h["bytes"], 0, "spike_enqueue",
+              source="src/repro_torch/kernels/csrc/spike_enqueue.cu")
+    e["by_shape"] = by
+    return e
 
 
 def _rand(gen, dev, *shape):
@@ -777,6 +916,8 @@ REPLACES = {
     "row_update_kernel_call": "src/repro/kernels/bcpnn_update.py:170",
     "col_update_kernel_call": "src/repro/kernels/bcpnn_update.py:523",
     "flash_attention": "src/repro/kernels/flash_attention.py:82",
+    # the JAX package's enqueue is XLA glue, no Pallas kernel
+    "spike_enqueue": None,
 }
 
 
@@ -897,7 +1038,8 @@ def reset_launches():
     kernel)."""
     from repro_torch.kernels import bcpnn_update as BU
     from repro_torch.kernels import flash_attention as FA
-    for counts in (BU.launches, FA.launches, FA.routes):
+    from repro_torch.kernels import spike_enqueue as SE
+    for counts in (BU.launches, FA.launches, FA.routes, SE.launches):
         for k in counts:
             counts[k] = 0
 
@@ -905,22 +1047,27 @@ def reset_launches():
 def read_launches():
     from repro_torch.kernels import bcpnn_update as BU
     from repro_torch.kernels import flash_attention as FA
-    return {**BU.launches, **FA.launches}
+    from repro_torch.kernels import spike_enqueue as SE
+    return {**BU.launches, **FA.launches, **SE.launches}
 
 
 # path -> (Simulator flags, timed ticks, the kernels it must launch once
-# per tick; every other kernel must not launch). fused_blocked stores the
-# planes in the (xr, 4) tile that phase 3 found fastest (`phase_paths`).
+# per tick; every other kernel must not launch). Every path's fan-out
+# launches the enqueue once a tick. fused_blocked stores the planes in the
+# (xr, 4) tile that phase 3 found fastest (`phase_paths`).
 PATHS = {
-    "fused": (dict(), TIMED_TICKS, ("fused_row_update", "fused_col_update")),
+    "fused": (dict(), TIMED_TICKS,
+              ("fused_row_update", "fused_col_update", "spike_enqueue")),
     "fused_blocked": (dict(layout=None), OTHER_TICKS,
-                      ("fused_row_update", "fused_col_update")),
+                      ("fused_row_update", "fused_col_update",
+                       "spike_enqueue")),
     "unfused": (dict(fused=False, fused_cols=False), OTHER_TICKS,
-                ("worklist_row_update", "col_update")),
-    "dense": (dict(worklist=False), OTHER_TICKS, ("row_update", "col_update")),
-    "eager": (dict(eager=True), EAGER_TICKS, ()),
-    "merged": (dict(merged=True), OTHER_TICKS, ()),
-    "merged_warm": (dict(merged=True), OTHER_TICKS, ()),
+                ("worklist_row_update", "col_update", "spike_enqueue")),
+    "dense": (dict(worklist=False), OTHER_TICKS,
+              ("row_update", "col_update", "spike_enqueue")),
+    "eager": (dict(eager=True), EAGER_TICKS, ("spike_enqueue",)),
+    "merged": (dict(merged=True), OTHER_TICKS, ("spike_enqueue",)),
+    "merged_warm": (dict(merged=True), OTHER_TICKS, ("spike_enqueue",)),
 }
 
 
@@ -962,12 +1109,18 @@ def ring_flushes(fired, held):
 # the path whose launch count each kernel reports
 REPORT_PATH = {"fused_row_update": "fused", "fused_col_update": "fused",
                "worklist_row_update": "unfused", "row_update": "dense",
-               "col_update": "unfused"}
+               "col_update": "unfused", "spike_enqueue": "fused"}
+# a name each launch puts in the trace once (the enqueue's last kernel)
 KERNEL_TAGS = {"fused_row_update": "fused_row_kernel",
                "fused_col_update": "fused_col_kernel",
                "worklist_row_update": "worklist_row_kernel",
                "row_update": "row_block_kernel",
-               "col_update": "col_block_kernel"}
+               "col_update": "col_block_kernel",
+               "spike_enqueue": "enqueue_place_kernel"}
+# where a launch runs more than one kernel, the part of a name they share,
+# for its device time: the enqueue's five kernels (its queue copy is a
+# memcpy, not counted)
+TIME_TAGS = {**KERNEL_TAGS, "spike_enqueue": "enqueue_"}
 
 
 def check_state(name, sim, fired, p, ticks, t_end):
@@ -1466,7 +1619,7 @@ def profile_replay(name, sim, ext, expect, unprofiled, run=None):
         by[nm][1] += 1
     busy = sum(v[0] for v in by.values()) / n
     ours = {k: sum(v[0] for nm, v in by.items() if tag in nm) / n
-            for k, tag in KERNEL_TAGS.items() if k in expect}
+            for k, tag in TIME_TAGS.items() if k in expect}
     idle = 1 - union / span
     print(f"{name} replay profile over {n} ticks (replays only, device "
           f"activity only, {time.perf_counter() - t0:.1f} s with the trace): "
@@ -1524,7 +1677,7 @@ def profile_ticks(name, sim, ext, kernels):
                 "phase_device_us_per_tick": phases}
     total = sum(r[1] for r in rows)
     ours = {k: sum(r[1] for r in rows if tag in r[0]) / n
-            for k, tag in KERNEL_TAGS.items() if k in kernels}
+            for k, tag in TIME_TAGS.items() if k in kernels}
     host = sorted((e for e in avgs if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
     host_total = sum(e.self_cpu_time_total for e in host) / n
@@ -2460,7 +2613,7 @@ def phase_rodent(report, smi):
     ext = torch.from_numpy(ext_block(p, T)).to(dev)
     print(f"rodent: {T} ticks of Poisson input (lambda 4, width 8) staged in "
           f"{time.perf_counter() - t0:.2f} s")
-    expect = ("fused_row_update", "fused_col_update")
+    expect = ("fused_row_update", "fused_col_update", "spike_enqueue")
 
     # the per-tick loop from the init, then reset() and the same ticks
     # through a graph: fired history and integer leaves bit for bit
@@ -2546,6 +2699,7 @@ def phase_rodent(report, smi):
         if e["name"] in expect:
             e.setdefault("launches_by_path", {})[
                 f"rodent {p.n_hcu} HCUs (at capture)"] = at_capture[e["name"]]
+        if e["name"] in timing:
             e["rodent"] = dict(timing[e["name"]], max_abs_err=errs[e["name"]])
     return {"us_per_tick_graphs": us, "device_span_us_per_tick": spans,
             "us_per_tick_per_tick": loop_us, "bound_us": bound.t_step * 1e6,
@@ -2566,8 +2720,11 @@ RESILIENT_CRASHES = (1, 3)    # chunks with a crash before their first try
 SERVE_SLOTS, SERVE_QUEUE, SERVE_STEP = 8, 32, 12
 SERVE_SESSIONS, SERVE_BUDGET, SERVE_CUE = 48, 48, 0.6
 SERVE_CHECKED = 2             # served sessions re-run solo, every leaf
+# the five plane kernels, then the fan-out's enqueue, which every tick
+# launches once
 BCPNN_KERNELS = ("fused_row_update", "fused_col_update",
-                 "worklist_row_update", "row_update", "col_update")
+                 "worklist_row_update", "row_update", "col_update",
+                 "spike_enqueue")
 
 
 def wipe_planes(state, p):
@@ -2639,9 +2796,11 @@ def phase_assoc_fixture():
              f"at steps {[c['step'] for c in srv.capture_steps]}")
     counts = bcpnn_counts()
     if not counts["row_update"] or not counts["col_update"] or \
-            any(counts[k] for k in BCPNN_KERNELS[:3]):
+            any(counts[k] for k in BCPNN_KERNELS[:3]) or \
+            counts["spike_enqueue"] != counts["row_update"]:
         fail(f"assoc fixture: launches {counts}, expected the dense "
-             f"backend's row_update and col_update only")
+             f"backend's row_update and col_update only, and the enqueue "
+             f"once a tick")
     print(f"assoc fixture: attractor {attractor.tolist()[0]}... and recall "
           f"{recall} (plain, sram_loss, sram_loss + wipe) equal the JAX "
           f"package's; the toy server's {len(done)} sessions "
@@ -2797,8 +2956,9 @@ def phase_resilient():
         fail(f"resilient: the restores changed the graphs ({len(before)} "
              f"before, {len(final)} after)")
     if counts["fused_row_update"] != counts["fused_col_update"] or \
+            counts["spike_enqueue"] != counts["fused_row_update"] or \
             not counts["fused_row_update"] or \
-            any(counts[k] for k in BCPNN_KERNELS[2:]):
+            any(counts[k] for k in BCPNN_KERNELS[2:5]):
         fail(f"resilient: launches {counts}")
     rec = ", ".join(f"t={r['restored_tick']} in {r['recovery_s']:.3f} s"
                     for r in runner.recoveries)
@@ -2884,9 +3044,11 @@ def phase_serve():
     lane_ticks = SERVE_SLOTS * SERVE_STEP
     if counts_first != {**{k: 0 for k in BCPNN_KERNELS},
                         "fused_row_update": lane_ticks + scratch,
-                        "fused_col_update": lane_ticks + scratch}:
+                        "fused_col_update": lane_ticks + scratch,
+                        "spike_enqueue": lane_ticks + scratch}:
         fail(f"serve: launches at the first step {counts_first}, expected "
-             f"{lane_ticks} (one a lane-tick) of the fused kernels only")
+             f"{lane_ticks} (one a lane-tick) of the fused kernels and the "
+             f"enqueue only")
     counts = bcpnn_counts()
     if counts != counts_first or srv.captures != SERVE_SLOTS or \
             [c["step"] for c in srv.capture_steps] != [0]:
@@ -2983,7 +3145,8 @@ def profile_serve_step(srv, patterns, p):
     lane's tick counter on the device advanced SERVE_STEP ticks from the
     template's, and each lane's graph holds SERVE_STEP kernel nodes of
     each fused kernel and none of another BCPNN kernel (a replay runs
-    every node). The trace's own count is printed beside: it lost a
+    every node), and SERVE_STEP of the enqueue's place kernel. The
+    trace's own count is printed beside: it lost a
     kernel record in 2 of 30 profiled steps whose lanes were all right
     (tools/serve_profile_probe.py)."""
     import collections
@@ -3014,8 +3177,8 @@ def profile_serve_step(srv, patterns, p):
             cnt.update(graph_kernels(g))
         nodes.append({k: sum(c for nm, c in cnt.items() if tag in nm)
                       for k, tag in KERNEL_TAGS.items()})
-    want_nodes = {k: SERVE_STEP * (k in BCPNN_KERNELS[:2])
-                  for k in KERNEL_TAGS}
+    on_lane = BCPNN_KERNELS[:2] + ("spike_enqueue",)
+    want_nodes = {k: SERVE_STEP * (k in on_lane) for k in KERNEL_TAGS}
     if any(d != want_nodes for d in nodes):
         fail(f"serve profile: the lanes' graphs hold {nodes} kernel nodes, "
              f"expected {want_nodes} each")
@@ -3144,7 +3307,8 @@ def sharded_nccl(tag, p, ext, mesh, rc, want, ref=None):
     at_capture = bcpnn_counts()
     check_counts(f"{tag} (capture)", at_capture,
                  {"fused_row_update": S + scratch,
-                  "fused_col_update": S + scratch})
+                  "fused_col_update": S + scratch,
+                  "spike_enqueue": S + scratch})
     nodes = {L: graph_nodes(g) for L, g in sim.graphs.captured.items()}
     if sim.state.hcus.zij.shape[0] != p.n_hcu * p.rows:
         fail(f"{tag}: the rank holds {sim.state.hcus.zij.shape[0]} rows")
@@ -3175,8 +3339,8 @@ def sharded_nccl(tag, p, ext, mesh, rc, want, ref=None):
                 fail(f"{tag}: the state differs from the local run's")
     us = wall / S * 1e6
     replay = profile_replay(tag, sim, ext[2 * S:3 * S],
-                            ("fused_row_update", "fused_col_update"), us,
-                            run=run)
+                            ("fused_row_update", "fused_col_update",
+                             "spike_enqueue"), us, run=run)
     exch = exchange_us(mesh, rc)
     words = words_per_tick(fired, p, mesh, rc)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3258,8 +3422,9 @@ def sharded_fixtures(rank, world):
     card, the worklist one in the four fused / fused_cols combinations
     (kernels 1-5); rank 0 holds the gathered run to the fixture's contract
     (`fixture_gaps`). Each rank's launch counters, from 0 for each case,
-    must show one launch a tick of the case's two kernels and none of any
-    other. Returns {case: (launches, largest float gap)}."""
+    must show one launch a tick of the case's two kernels and of the
+    enqueue, and none of any other. Returns {case: (launches, largest
+    float gap)}."""
     import torch
     from repro_torch import convert
     from repro_torch.core import distributed as DD
@@ -3282,7 +3447,7 @@ def sharded_fixtures(rank, world):
         counts = bcpnn_counts()
         T = d["ext"].shape[0]
         check_counts(f"sharded fixture {case} (rank {rank})", counts,
-                     {k: T for k in kernels})
+                     {k: T for k in kernels + ("spike_enqueue",)})
         fired = DD.gather_fired(mesh, f).cpu().numpy()
         got = convert.state_to_numpy(DD.gather_network(mesh, s))
         gaps = fixture_gaps(f"sharded {case}", fired, got, d)
@@ -3421,7 +3586,8 @@ def phase_sharded(report):
                 x["drops_sum"] != x["drops_want"]:
             fail(f"9c rank {r}: {json.dumps(x)}")
         check_counts(f"9c rank {r}", x["launches"],
-                     {"fused_row_update": S, "fused_col_update": S})
+                     {"fused_row_update": S, "fused_col_update": S,
+                      "spike_enqueue": S})
     print(f"9c: run_sharded on {SHARD_RANKS} gloo ranks on the one card "
           f"(each {c[0]['rows']} rows, lossless rc), {S} ticks tick by "
           f"tick: fired history and every rank's slice of the {c[0]['leaves']}"
@@ -3990,9 +4156,12 @@ def phase_train_mesh(smi, ref):
 # example -> (arguments, its closing line, the kernels it must launch)
 EXAMPLE_RUNS = {
     "quickstart_torch": ([], "OK — lazy BCPNN network ran and stayed "
-                             "consistent.", ("row_update", "col_update")),
+                             "consistent.",
+                         ("row_update", "col_update", "spike_enqueue")),
     "bcpnn_assoc_memory_torch": ([], "OK — associative recall well above "
-                                     "chance.", ("row_update", "col_update")),
+                                     "chance.",
+                                 ("row_update", "col_update",
+                                  "spike_enqueue")),
     "serve_lm_torch": (["--attn", "pallas_flash", "--prompt-len", "128"],
                        "OK — engine output matches the reference decode "
                        "path.", ("flash_attention",)),
@@ -4006,7 +4175,8 @@ script = sys.argv[2]
 sys.argv = [script] + sys.argv[3:]
 runpy.run_path(script, run_name="__main__")
 from repro_torch.kernels import bcpnn_update as BU, flash_attention as FA
-print("LAUNCHES " + json.dumps({**BU.launches, **FA.launches,
+from repro_torch.kernels import spike_enqueue as SE
+print("LAUNCHES " + json.dumps({**BU.launches, **FA.launches, **SE.launches,
                                 "flash_routes": dict(FA.routes)}))
 """
 
@@ -4017,8 +4187,8 @@ def phase_examples(smi):
     sizes but the training example's steps (60 of 200); each must exit 0
     with its closing OK line, and its kernels' launch counters (printed by
     a wrapper after the example returns) must show every kernel of its
-    path: the dense backend's row and column block kernels for the two
-    BCPNN examples, flash (through `flash_mma_kernel`) for the serving
+    path: the dense backend's row and column block kernels and the
+    enqueue for the two BCPNN examples, flash (through `flash_mma_kernel`) for the serving
     example's 128-token prefills; training launches none. Returns the
     launches by example."""
     t0 = time.perf_counter()
@@ -4155,8 +4325,10 @@ def main():
           "shape (by_shape: at each shape without softcap or window); its "
           "launches are the LM serving runs' of phases 6b, 7, 10 and 12c "
           "and the serving example's; training (phases 11b, 12a, 12b and "
-          "the training example) launches none of the six kernels; the "
-          "fused kernels' rodent entry times them at 32,000 HCUs")
+          "the training example) launches none of the seven kernels; the "
+          "fused kernels' rodent entry times them at 32,000 HCUs; the "
+          "enqueue replaces no TPU kernel, and its by_shape times it at "
+          "the three benchmark cells' shapes")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,6 +51,7 @@ from repro_torch.core import merged as M
 from repro_torch.core import rng
 from repro_torch.core import spans
 from repro_torch.core.params import BCPNNParams
+from repro_torch.kernels import spike_enqueue as SE
 
 
 class Connectivity(NamedTuple):
@@ -166,7 +167,28 @@ def enqueue_spikes(state: NetworkState, dest_h, dest_row, delay, valid,
     Fixed-capacity slot allocation: messages are ranked within their
     (dest_hcu, bucket) group; slot = current_count + rank; messages whose
     slot exceeds the bucket capacity A are dropped and counted (Fig 7).
+    Returns the state with new delay queues, counts and drop counter.
+
+    The queues' device decides: on the CPU the plain version
+    (`enqueue_spikes_plain`), on CUDA one call of the hand-written enqueue
+    (`repro_torch.kernels.spike_enqueue`), which gives the same bits and
+    launches or raises.
     """
+    if state.delay_rows.device.type == "cpu":
+        return enqueue_spikes_plain(state, dest_h, dest_row, delay, valid, p,
+                                    n_hcu)
+    rows, count, drops = SE.enqueue_spikes_kernel(
+        state.delay_rows, state.delay_count, state.drops_in, state.t,
+        dest_h.contiguous(), dest_row.contiguous(), delay.contiguous(),
+        valid.contiguous())
+    return state._replace(delay_rows=rows, delay_count=count, drops_in=drops)
+
+
+def enqueue_spikes_plain(state: NetworkState, dest_h, dest_row, delay, valid,
+                         p: BCPNNParams, n_hcu: int):
+    """Plain PyTorch version of `enqueue_spikes` (same arguments, same
+    result, on any device): a stable sort ranks every message within its
+    key, padding included."""
     D, A = p.max_delay, p.active_queue
     bucket = (state.t + delay) % D
     hb = dest_h * D + bucket
