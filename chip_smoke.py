@@ -36,7 +36,16 @@ toolkit. Phases, in order; any failure exits non-zero:
                queues, counts and drops bit for bit, one launch counted a
                call; kernel, plain version and the queue's copy alone each
                captured in a CUDA graph and timed over its replays, beside
-               the byte bound.
+               the byte bound. Then the tick's WTA (`kernels.wta_draw`:
+               keys, fire draw, Gumbel noise, drive and argmax, which
+               replaces no TPU kernel either) against
+               `hcu.wta_draw_plain` at the same three cells' shapes (~14
+               live slots of 44 an HCU on a drive tick, every slot of 40
+               on a recall tick): support and fired bit for bit, one
+               launch counted a call; kernel and plain version each
+               captured in a graph and timed over its replays, beside the
+               byte bound. Every BCPNN path below launches the enqueue
+               and the WTA kernel once a tick.
   4. fixtures — the head fixtures of tests/fixtures on the card through the
                kernels, each under the flags it was captured with
                (head_lazy_worklist in all four fused / fused_cols
@@ -367,15 +376,16 @@ toolkit. Phases, in order; any failure exits non-zero:
                serve_lm_torch.py (--attn pallas_flash --prompt-len 128) and
                train_lm_torch.py (--steps 60) on CUDA, as subprocesses
                started together: each ends in its OK line, and its launch
-               counters show the dense backend's block kernels and the
-               enqueue (the BCPNN examples), flash through
+               counters show the dense backend's block kernels, the
+               enqueue and the WTA kernel (the BCPNN examples), flash through
                `flash_mma_kernel` (serving), none (training).
  14. report  — one JSON line of the kernels (with each BCPNN kernel's
                launches on the phase 8 paths, counted at capture, on
                the sharded paths of phase 9, on the rodent path (at
                capture) and in the examples under ``launches_by_path``,
                and the fused kernels' rodent-width times under
-               ``rodent``; the enqueue's three shapes under ``by_shape``;
+               ``rodent``; the enqueue's and the WTA's three shapes under
+               ``by_shape``;
                flash's launches are the LM serving runs' of phases 6b, 7,
                10 and 12c and the serving example's, by model under
                ``launches_by_path``, beside phase 11b's and 12's training
@@ -745,6 +755,7 @@ def phase_kernels(p, dev):
                               K * R * OPS_PER_CELL, "col_update_kernel_call"))
     print(f"column blocks: {K} entries ({nf} fired) of {R} rows")
     report.append(check_enqueue(flush, dev))
+    report.append(check_wta_draw(flush, dev))
     return report, dict(LAYOUTS)[best]
 
 
@@ -873,6 +884,88 @@ def check_enqueue(flush, dev):
     return e
 
 
+def wta_shapes():
+    """The WTA at the benchmark cells' shapes: name -> (params, slots an
+    HCU, live slots an HCU). A drive tick's slots are the delay bucket
+    (active_queue) and 8 drive rows, ~14 of them live (the distinct rows a
+    tick delivers at lambda 4); a recall tick fills every slot of its
+    bucket and 4 cue rows."""
+    p_rodent, p_human, _ = (v[0] for v in enqueue_shapes().values())
+    recall = serve_params()
+    A = lambda p, width: p.active_queue + width
+    return {"rodent.drive4": (p_rodent, A(p_rodent, 8), 14),
+            "human256.drive4": (p_human, A(p_human, 8), 14),
+            "human256.recall": (recall, A(recall, 4), A(recall, 4))}
+
+
+def wta_bytes(nv, n, C):
+    """The WTA's bytes (h100_bench/metrics/wta_kernel_roofline.sim.py):
+    each live slot's weight row and count, the (n, C) support and Pj read
+    and the support written, one fired index an HCU."""
+    return nv * (C * 4 + 4) + n * C * 12 + n * 4
+
+
+def check_wta_draw(flush, dev):
+    """Phase 3's check of the WTA kernel at each shape of `wta_shapes`:
+    `kernels.wta_draw` through `hcu.wta_draw` (one launch counted a call)
+    against `hcu.wta_draw_plain` on the card, h' and fired bit for bit;
+    then the kernel and the plain version, each captured alone in a graph,
+    timed over replays (`time_cuda`, L2 flushed) beside the bytes bound
+    (`wta_bytes`). Returns the report's entry: the human256 drive shape,
+    every shape under ``by_shape``."""
+    import torch
+    from repro_torch.core import hcu as H
+    from repro_torch.kernels import wta_draw as WD
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    floor = floor_ms(flush)
+    by = {}
+    for name, (p, A, live) in wta_shapes().items():
+        n, C = p.n_hcu, p.cols
+        h = torch.randn(n, C, generator=gen, device=dev) * 0.5
+        pj = torch.rand(n, C, generator=gen, device=dev) * 0.05 + 1e-3
+        w = torch.randn(n, A, C, generator=gen, device=dev)
+        slot = torch.rand(n, A, generator=gen, device=dev).argsort(dim=1)
+        counts = torch.where(slot < live, 1.0, 0.0)
+        w = torch.where(counts[..., None] > 0, w, 0.0)
+        keys = H.TickKeys(torch.tensor([0, 42], dtype=torch.int64, device=dev),
+                          torch.tensor(12_345, dtype=torch.int32, device=dev))
+        plain = H.wta_draw_plain(h, pj, w, counts, keys, p)
+        before = WD.launches["wta_draw"]
+        kern = H.wta_draw(h, pj, w, counts, keys, p)
+        if WD.launches["wta_draw"] != before + 1:
+            fail(f"wta_draw {name}: the call counted "
+                 f"{WD.launches['wta_draw'] - before} launches")
+        for f, a, b in zip(("h", "fired"), kern, plain):
+            if not torch.equal(a, b):
+                fail(f"wta_draw {name}: {f} differs from the plain version's")
+        nv = n * live
+        nbytes = wta_bytes(nv, n, C)
+        rec = {"hcus": n, "slots": n * A, "live": nv,
+               "fired": int((kern[1] >= 0).sum()), "bytes": nbytes,
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "ms": time_cuda(graphed(
+                   lambda: H.wta_draw(h, pj, w, counts, keys, p)), flush),
+               "plain_ms": time_cuda(graphed(
+                   lambda: H.wta_draw_plain(h, pj, w, counts, keys, p)),
+                   flush),
+               "floor_ms": floor}
+        by[name] = rec
+        print(f"wta_draw [{name}]: {n} HCUs, {A} slots ({live} live) x {C} "
+              f"minicolumns, {rec['fired']} fired: bit for bit the plain "
+              f"version; {rec['ms']:.5f} ms (plain {rec['plain_ms']:.5f}), "
+              f"bound {rec['bound_ms']:.5f} ms ({nbytes} bytes), time_cuda's "
+              f"floor {floor:.5f} ms")
+        del h, pj, w, counts, plain, kern
+    torch.cuda.empty_cache()
+    e = by["human256.drive4"]
+    out = entry("wta_draw", {"all": 0.0}, e["ms"], e["plain_ms"],
+                e["bytes"], 0, "wta_draw",
+                source="src/repro_torch/kernels/csrc/wta_draw.cu")
+    out["by_shape"] = by
+    return out
+
+
 def _rand(gen, dev, *shape):
     import torch
     return torch.rand(*shape, generator=gen, device=dev)
@@ -918,6 +1011,8 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:82",
     # the JAX package's enqueue is XLA glue, no Pallas kernel
     "spike_enqueue": None,
+    # nor are its per-tick keys, fire draw and Gumbel argmax
+    "wta_draw": None,
 }
 
 
@@ -1039,7 +1134,9 @@ def reset_launches():
     from repro_torch.kernels import bcpnn_update as BU
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import spike_enqueue as SE
-    for counts in (BU.launches, FA.launches, FA.routes, SE.launches):
+    from repro_torch.kernels import wta_draw as WD
+    for counts in (BU.launches, FA.launches, FA.routes, SE.launches,
+                   WD.launches):
         for k in counts:
             counts[k] = 0
 
@@ -1048,26 +1145,28 @@ def read_launches():
     from repro_torch.kernels import bcpnn_update as BU
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import spike_enqueue as SE
-    return {**BU.launches, **FA.launches, **SE.launches}
+    from repro_torch.kernels import wta_draw as WD
+    return {**BU.launches, **FA.launches, **SE.launches, **WD.launches}
 
 
 # path -> (Simulator flags, timed ticks, the kernels it must launch once
 # per tick; every other kernel must not launch). Every path's fan-out
-# launches the enqueue once a tick. fused_blocked stores the planes in the
+# launches the enqueue once a tick, and its WTA the WTA kernel. fused_blocked stores the planes in the
 # (xr, 4) tile that phase 3 found fastest (`phase_paths`).
+TICK_KERNELS = ("spike_enqueue", "wta_draw")
 PATHS = {
     "fused": (dict(), TIMED_TICKS,
-              ("fused_row_update", "fused_col_update", "spike_enqueue")),
+              ("fused_row_update", "fused_col_update") + TICK_KERNELS),
     "fused_blocked": (dict(layout=None), OTHER_TICKS,
-                      ("fused_row_update", "fused_col_update",
-                       "spike_enqueue")),
+                      ("fused_row_update", "fused_col_update")
+                      + TICK_KERNELS),
     "unfused": (dict(fused=False, fused_cols=False), OTHER_TICKS,
-                ("worklist_row_update", "col_update", "spike_enqueue")),
+                ("worklist_row_update", "col_update") + TICK_KERNELS),
     "dense": (dict(worklist=False), OTHER_TICKS,
-              ("row_update", "col_update", "spike_enqueue")),
-    "eager": (dict(eager=True), EAGER_TICKS, ("spike_enqueue",)),
-    "merged": (dict(merged=True), OTHER_TICKS, ("spike_enqueue",)),
-    "merged_warm": (dict(merged=True), OTHER_TICKS, ("spike_enqueue",)),
+              ("row_update", "col_update") + TICK_KERNELS),
+    "eager": (dict(eager=True), EAGER_TICKS, TICK_KERNELS),
+    "merged": (dict(merged=True), OTHER_TICKS, TICK_KERNELS),
+    "merged_warm": (dict(merged=True), OTHER_TICKS, TICK_KERNELS),
 }
 
 
@@ -1109,14 +1208,16 @@ def ring_flushes(fired, held):
 # the path whose launch count each kernel reports
 REPORT_PATH = {"fused_row_update": "fused", "fused_col_update": "fused",
                "worklist_row_update": "unfused", "row_update": "dense",
-               "col_update": "unfused", "spike_enqueue": "fused"}
+               "col_update": "unfused", "spike_enqueue": "fused",
+               "wta_draw": "fused"}
 # a name each launch puts in the trace once (the enqueue's last kernel)
 KERNEL_TAGS = {"fused_row_update": "fused_row_kernel",
                "fused_col_update": "fused_col_kernel",
                "worklist_row_update": "worklist_row_kernel",
                "row_update": "row_block_kernel",
                "col_update": "col_block_kernel",
-               "spike_enqueue": "enqueue_place_kernel"}
+               "spike_enqueue": "enqueue_place_kernel",
+               "wta_draw": "wta_draw_kernel"}
 # where a launch runs more than one kernel, the part of a name they share,
 # for its device time: the enqueue's five kernels (its queue copy is a
 # memcpy, not counted)
@@ -2613,7 +2714,7 @@ def phase_rodent(report, smi):
     ext = torch.from_numpy(ext_block(p, T)).to(dev)
     print(f"rodent: {T} ticks of Poisson input (lambda 4, width 8) staged in "
           f"{time.perf_counter() - t0:.2f} s")
-    expect = ("fused_row_update", "fused_col_update", "spike_enqueue")
+    expect = ("fused_row_update", "fused_col_update") + TICK_KERNELS
 
     # the per-tick loop from the init, then reset() and the same ticks
     # through a graph: fired history and integer leaves bit for bit
@@ -2720,11 +2821,11 @@ RESILIENT_CRASHES = (1, 3)    # chunks with a crash before their first try
 SERVE_SLOTS, SERVE_QUEUE, SERVE_STEP = 8, 32, 12
 SERVE_SESSIONS, SERVE_BUDGET, SERVE_CUE = 48, 48, 0.6
 SERVE_CHECKED = 2             # served sessions re-run solo, every leaf
-# the five plane kernels, then the fan-out's enqueue, which every tick
-# launches once
+# the five plane kernels, then the fan-out's enqueue and the WTA, which
+# every tick launches once
 BCPNN_KERNELS = ("fused_row_update", "fused_col_update",
                  "worklist_row_update", "row_update", "col_update",
-                 "spike_enqueue")
+                 "spike_enqueue", "wta_draw")
 
 
 def wipe_planes(state, p):
@@ -2797,10 +2898,11 @@ def phase_assoc_fixture():
     counts = bcpnn_counts()
     if not counts["row_update"] or not counts["col_update"] or \
             any(counts[k] for k in BCPNN_KERNELS[:3]) or \
-            counts["spike_enqueue"] != counts["row_update"]:
+            counts["spike_enqueue"] != counts["row_update"] or \
+            counts["wta_draw"] != counts["row_update"]:
         fail(f"assoc fixture: launches {counts}, expected the dense "
              f"backend's row_update and col_update only, and the enqueue "
-             f"once a tick")
+             f"and the WTA once a tick")
     print(f"assoc fixture: attractor {attractor.tolist()[0]}... and recall "
           f"{recall} (plain, sram_loss, sram_loss + wipe) equal the JAX "
           f"package's; the toy server's {len(done)} sessions "
@@ -2957,6 +3059,7 @@ def phase_resilient():
              f"before, {len(final)} after)")
     if counts["fused_row_update"] != counts["fused_col_update"] or \
             counts["spike_enqueue"] != counts["fused_row_update"] or \
+            counts["wta_draw"] != counts["fused_row_update"] or \
             not counts["fused_row_update"] or \
             any(counts[k] for k in BCPNN_KERNELS[2:5]):
         fail(f"resilient: launches {counts}")
@@ -3045,10 +3148,11 @@ def phase_serve():
     if counts_first != {**{k: 0 for k in BCPNN_KERNELS},
                         "fused_row_update": lane_ticks + scratch,
                         "fused_col_update": lane_ticks + scratch,
-                        "spike_enqueue": lane_ticks + scratch}:
+                        "spike_enqueue": lane_ticks + scratch,
+                        "wta_draw": lane_ticks + scratch}:
         fail(f"serve: launches at the first step {counts_first}, expected "
-             f"{lane_ticks} (one a lane-tick) of the fused kernels and the "
-             f"enqueue only")
+             f"{lane_ticks} (one a lane-tick) of the fused kernels, the "
+             f"enqueue and the WTA only")
     counts = bcpnn_counts()
     if counts != counts_first or srv.captures != SERVE_SLOTS or \
             [c["step"] for c in srv.capture_steps] != [0]:
@@ -3177,7 +3281,7 @@ def profile_serve_step(srv, patterns, p):
             cnt.update(graph_kernels(g))
         nodes.append({k: sum(c for nm, c in cnt.items() if tag in nm)
                       for k, tag in KERNEL_TAGS.items()})
-    on_lane = BCPNN_KERNELS[:2] + ("spike_enqueue",)
+    on_lane = BCPNN_KERNELS[:2] + TICK_KERNELS
     want_nodes = {k: SERVE_STEP * (k in on_lane) for k in KERNEL_TAGS}
     if any(d != want_nodes for d in nodes):
         fail(f"serve profile: the lanes' graphs hold {nodes} kernel nodes, "
@@ -3308,7 +3412,7 @@ def sharded_nccl(tag, p, ext, mesh, rc, want, ref=None):
     check_counts(f"{tag} (capture)", at_capture,
                  {"fused_row_update": S + scratch,
                   "fused_col_update": S + scratch,
-                  "spike_enqueue": S + scratch})
+                  "spike_enqueue": S + scratch, "wta_draw": S + scratch})
     nodes = {L: graph_nodes(g) for L, g in sim.graphs.captured.items()}
     if sim.state.hcus.zij.shape[0] != p.n_hcu * p.rows:
         fail(f"{tag}: the rank holds {sim.state.hcus.zij.shape[0]} rows")
@@ -3339,8 +3443,8 @@ def sharded_nccl(tag, p, ext, mesh, rc, want, ref=None):
                 fail(f"{tag}: the state differs from the local run's")
     us = wall / S * 1e6
     replay = profile_replay(tag, sim, ext[2 * S:3 * S],
-                            ("fused_row_update", "fused_col_update",
-                             "spike_enqueue"), us, run=run)
+                            ("fused_row_update", "fused_col_update")
+                            + TICK_KERNELS, us, run=run)
     exch = exchange_us(mesh, rc)
     words = words_per_tick(fired, p, mesh, rc)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3447,7 +3551,7 @@ def sharded_fixtures(rank, world):
         counts = bcpnn_counts()
         T = d["ext"].shape[0]
         check_counts(f"sharded fixture {case} (rank {rank})", counts,
-                     {k: T for k in kernels + ("spike_enqueue",)})
+                     {k: T for k in kernels + TICK_KERNELS})
         fired = DD.gather_fired(mesh, f).cpu().numpy()
         got = convert.state_to_numpy(DD.gather_network(mesh, s))
         gaps = fixture_gaps(f"sharded {case}", fired, got, d)
@@ -3587,7 +3691,7 @@ def phase_sharded(report):
             fail(f"9c rank {r}: {json.dumps(x)}")
         check_counts(f"9c rank {r}", x["launches"],
                      {"fused_row_update": S, "fused_col_update": S,
-                      "spike_enqueue": S})
+                      "spike_enqueue": S, "wta_draw": S})
     print(f"9c: run_sharded on {SHARD_RANKS} gloo ranks on the one card "
           f"(each {c[0]['rows']} rows, lossless rc), {S} ticks tick by "
           f"tick: fired history and every rank's slice of the {c[0]['leaves']}"
@@ -4157,11 +4261,11 @@ def phase_train_mesh(smi, ref):
 EXAMPLE_RUNS = {
     "quickstart_torch": ([], "OK — lazy BCPNN network ran and stayed "
                              "consistent.",
-                         ("row_update", "col_update", "spike_enqueue")),
+                         ("row_update", "col_update") + TICK_KERNELS),
     "bcpnn_assoc_memory_torch": ([], "OK — associative recall well above "
                                      "chance.",
-                                 ("row_update", "col_update",
-                                  "spike_enqueue")),
+                                 ("row_update", "col_update")
+                                 + TICK_KERNELS),
     "serve_lm_torch": (["--attn", "pallas_flash", "--prompt-len", "128"],
                        "OK — engine output matches the reference decode "
                        "path.", ("flash_attention",)),
@@ -4175,9 +4279,9 @@ script = sys.argv[2]
 sys.argv = [script] + sys.argv[3:]
 runpy.run_path(script, run_name="__main__")
 from repro_torch.kernels import bcpnn_update as BU, flash_attention as FA
-from repro_torch.kernels import spike_enqueue as SE
+from repro_torch.kernels import spike_enqueue as SE, wta_draw as WD
 print("LAUNCHES " + json.dumps({**BU.launches, **FA.launches, **SE.launches,
-                                "flash_routes": dict(FA.routes)}))
+                                **WD.launches, "flash_routes": dict(FA.routes)}))
 """
 
 
@@ -4325,10 +4429,10 @@ def main():
           "shape (by_shape: at each shape without softcap or window); its "
           "launches are the LM serving runs' of phases 6b, 7, 10 and 12c "
           "and the serving example's; training (phases 11b, 12a, 12b and "
-          "the training example) launches none of the seven kernels; the "
+          "the training example) launches none of the eight kernels; the "
           "fused kernels' rodent entry times them at 32,000 HCUs; the "
-          "enqueue replaces no TPU kernel, and its by_shape times it at "
-          "the three benchmark cells' shapes")
+          "enqueue and the WTA replace no TPU kernel, and their by_shape "
+          "times them at the three benchmark cells' shapes")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

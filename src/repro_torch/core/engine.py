@@ -476,9 +476,9 @@ def tick(state: N.NetworkState, conn: N.Connectivity, ext_rows,
     rows = torch.cat([bucket, ext_rows], dim=1)
     spans.mark("bucket")
 
-    # 2. plane update (rows + WTA + columns), the JAX package's RNG stream
-    k_t = rng.fold_in(state.base_key, t)
-    keys = rng.fold_in(k_t, gid_base + torch.arange(n, device=rows.device))
+    # 2. plane update (rows + WTA + columns), the JAX package's RNG stream:
+    # the WTA derives each HCU's key itself (`hcu.wta_draw`)
+    keys = H.TickKeys(state.base_key, t, gid_base)
     spans.mark("keys")
     split = route is not None and hasattr(route, "send")
     if split:

@@ -30,6 +30,7 @@ from repro_torch.core import layout as L
 from repro_torch.core import rng
 from repro_torch.core import spans
 from repro_torch.kernels import ops
+from repro_torch.kernels import wta_draw as WD
 
 
 # Size guard of the JAX package: at most this many cells per HCU take the
@@ -264,35 +265,101 @@ def write_rows(st: HCUState, redirect, now, rows_new, rows_old, iv_new,
     write_ivecs(st, redirect, now, iv_new, iv_old)
 
 
-def periodic_math(h_vec, pj, w_rows, counts, key, p: BCPNNParams):
-    """Support integration + soft WTA for a batch of HCUs.
+class TickKeys(NamedTuple):
+    """The WTA's keys of one tick, not yet derived: HCU h of the batch
+    draws under fold_in(fold_in(base_key, t), gid_base + h), the JAX
+    package's per-tick, per-HCU stream. base_key (2,) int64 and t (an
+    int32 tensor) stay on the device; gid_base is the global id of HCU 0
+    of the batch (sharded: rank * h_local), so the stream does not depend
+    on the rank count."""
+    base_key: torch.Tensor
+    t: torch.Tensor
+    gid_base: int = 0
 
-    h_vec, pj (H, C); w_rows (H, A, C); counts (H, A); key (H, 2).
-    Returns (h', fired_j (H,) int32), fired_j == -1 where the HCU stays
-    silent. Same RNG stream as the JAX package's `periodic_math`.
+    def per_hcu(self, n: int) -> torch.Tensor:
+        """The (n, 2) keys themselves (`rng.fold_in` twice)."""
+        k_t = rng.fold_in(self.base_key, self.t)
+        return rng.fold_in(k_t, self.gid_base + torch.arange(
+            n, device=self.base_key.device))
+
+
+def wta_draw(h_vec, pj, w_rows, counts, keys, p: BCPNNParams):
+    """Support integration + soft WTA for a batch of HCUs: the drive
+    sum_a counts[:, a] * w_rows[:, a], h' = h * decay + drive, and the
+    draw of `wta_draw_plain`.
+
+    h_vec, pj (H, C); w_rows (H, A, C) with counts (H, A), or w_rows
+    (H, 1, C) the drive itself with counts None; keys a `TickKeys` or the
+    per-HCU keys (H, 2). Returns (h', fired_j (H,) int32), fired_j == -1
+    where the HCU stays silent. The JAX package's `periodic_math`, its
+    RNG stream included.
+
+    The tensors' device decides: on the CPU the plain version, on CUDA one
+    call of the hand-written kernel (`repro_torch.kernels.wta_draw`),
+    which gives the same bits and launches or raises.
     """
-    drive = torch.sum(counts[..., None] * w_rows, dim=-2)          # (H, C)
-    return wta(h_vec, pj, drive, key, p)
+    if h_vec.device.type == "cpu":
+        return wta_draw_plain(h_vec, pj, w_rows, counts, keys, p)
+    return WD.wta_draw_kernel(
+        h_vec.contiguous(), pj.contiguous(), w_rows.contiguous(),
+        None if counts is None else counts.contiguous(), keys,
+        decay=_decay_m(p).item(), eps=p.eps,
+        inv_temp=(1.0 / torch.tensor(p.wta_temp, dtype=torch.float32)).item(),
+        thresh=p.out_rate * p.dt_ms)
 
 
-def wta(h_vec, pj, drive, key, p: BCPNNParams):
-    """Support integration of a given drive (H, C) and the soft WTA draw
-    (the tail of `periodic_math`, shared with the eager model)."""
+def _decay_m(p: BCPNNParams):
     # a zero-dimensional CPU tensor: applied to CUDA tensors as a scalar
-    decay_m = torch.exp(torch.tensor(-p.dt_ms / p.tau_m, dtype=torch.float32))
-    h = h_vec * decay_m + drive
+    return torch.exp(torch.tensor(-p.dt_ms / p.tau_m, dtype=torch.float32))
+
+
+def slot_order_drive(counts, w_rows):
+    """sum_a counts[:, a] * w_rows[:, a], added slot by slot from slot 0
+    (the order the WTA kernel keeps). counts (H, A), w_rows (H, A, C)."""
+    drive = torch.zeros_like(w_rows[:, 0])
+    for a in range(w_rows.shape[1]):
+        drive = drive + counts[:, a, None] * w_rows[:, a]
+    return drive
+
+
+def wta_draw_plain(h_vec, pj, w_rows, counts, keys, p: BCPNNParams):
+    """Plain PyTorch version of `wta_draw` (same arguments, same result):
+    the drive, then `jax.random`'s split, uniform and categorical through
+    `rng`. The drive's float32 sum is taken in `torch.sum`'s order on the
+    CPU (the order the CPU tests and the benchmark's reference hold the
+    port to) and in slot order on CUDA (`slot_order_drive`, the kernel's),
+    so that on either device this is the function the main path runs
+    there, bit for bit."""
+    if counts is None:
+        drive = w_rows[:, 0]
+    elif h_vec.device.type == "cpu":
+        drive = torch.sum(counts[..., None] * w_rows, dim=-2)
+    else:
+        drive = slot_order_drive(counts, w_rows)
+    if isinstance(keys, TickKeys):
+        keys = keys.per_hcu(h_vec.shape[0])
+    h = h_vec * _decay_m(p) + drive
     s = h + bias(pj, p.eps)
-    k = rng.split(key)
+    k = rng.split(keys)
     fire = rng.uniform(k[..., 0, :]) < p.out_rate * p.dt_ms
     winner = rng.categorical(k[..., 1, :], s / p.wta_temp)
     fired_j = torch.where(fire, winner, -1).to(torch.int32)
     return h, fired_j
 
 
-def periodic_update(st: HCUState, w_rows, counts, key, p: BCPNNParams):
+def wta(h_vec, pj, drive, keys, p: BCPNNParams):
+    """Support integration of a given drive (H, C) and the soft WTA draw
+    (`wta_draw` with the drive in place of the weight rows; the eager
+    model's)."""
+    return wta_draw(h_vec, pj, drive[:, None, :], None, keys, p)
+
+
+def periodic_update(st: HCUState, w_rows, counts, keys, p: BCPNNParams):
     """Support integration + soft WTA (the paper's periodic update, every
-    ms) of every HCU. Returns (st', fired_j (H,))."""
-    h, fired_j = periodic_math(st.h, st.pj, w_rows, counts, key, p)
+    ms) of every HCU: `wta_draw` on the weight rows (H, A, C) and counts
+    (H, A) of the tick's row phase. ``keys``: a `TickKeys` or the
+    per-HCU keys (H, 2). Returns (st', fired_j (H,))."""
+    h, fired_j = wta_draw(st.h, st.pj, w_rows, counts, keys, p)
     return st._replace(h=h), fired_j
 
 

@@ -9,10 +9,11 @@ the recorder:
 
 * **Marks.** `engine.tick` marks the start of each tick (``tick.start``)
   and the end of each of its six phases (`PHASES`): ``bucket`` (the delay
-  bucket and the merge with the drive), ``keys`` (the threefry keys),
-  ``rows`` (the row phase: dedup, worklist, row kernel), ``wta``
-  (`hcu.periodic_update` and `select_fired`), ``cols`` (the column phase)
-  and ``fanout`` (the connectivity gathers and `enqueue_spikes`, or the
+  bucket and the merge with the drive), ``keys`` (empty: the WTA derives
+  its keys itself), ``rows`` (the row phase: dedup, worklist, row
+  kernel), ``wta`` (`hcu.periodic_update`, whose `hcu.wta_draw` derives
+  the keys, draws and takes the argmax, and `select_fired`), ``cols``
+  (the column phase) and ``fanout`` (the connectivity gathers and `enqueue_spikes`, or the
   split route's receive; its send then runs inside ``cols``). A backend
   without a phase marks where it would end, so that phase reads 0.
   Marks are written only into the buffer of a chunk that is being captured

@@ -22,10 +22,12 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-# per-source flags: the BCPNN kernels repeat their plain versions' float32
-# operations one for one, so no multiply-add may be contracted there; the
-# flash kernels report their registers and spills (ptxas -v)
+# per-source flags: the BCPNN kernels and the WTA repeat their plain
+# versions' float32 operations one for one, so no multiply-add may be
+# contracted there; the flash kernels report their registers and spills
+# (ptxas -v)
 SOURCE_FLAGS = {"bcpnn_update": ("-fmad=false",),
+                "wta_draw": ("-fmad=false",),
                 "flash_attention": ("-Xptxas", "-v")}
 
 _loaded: dict[str, ctypes.CDLL] = {}
