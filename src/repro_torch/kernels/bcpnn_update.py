@@ -18,7 +18,8 @@ against its plain version on the card.
 
 Each wrapper counts its launches in `launches[name]`: one per kernel
 launch, nowhere else, so a run can show that its main path went through
-the kernels.
+the kernels. `row_walks[bytes]` counts the fused row launches by the
+segment a lane loads of a row (16, 8 or 4 bytes; `_row_segment_bytes`).
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from repro_torch.kernels.bcpnn_ref import (cell_math, col_update_ref,
 
 launches = {"fused_row_update": 0, "fused_col_update": 0,
             "worklist_row_update": 0, "row_update": 0, "col_update": 0}
+row_walks = {16: 0, 8: 0, 4: 0}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _COEFFS = [_F] * 8
@@ -135,12 +137,19 @@ def _tiling_args(geom):
             geom.col_tiles_n)
 
 
-def _vec_rows(geom, tensors) -> int:
-    """1 where the row kernels may walk a row in 16-byte segments of 4
-    cells: whole tiles of a multiple of 4 cells in a row (no padded
-    columns) and 16-byte aligned operands; else 0 (cell by cell)."""
-    return int(geom.xc % 4 == 0 and geom.cols % geom.xc == 0
-               and all(t.data_ptr() % 16 == 0 for t in tensors))
+def _row_segment_bytes(geom, tensors) -> int:
+    """The widest segment of a row that one lane of the row kernels loads
+    at once: 16 bytes (4 cells) for whole tiles of a multiple of 4 cells
+    in a row (no padded columns) and 16-byte aligned operands; else 8
+    bytes (2 cells) where tiles and rows are a whole number of 2-cell
+    segments and the operands 8-byte aligned; else 4 (cell by cell)."""
+    if (geom.xc % 4 == 0 and geom.cols % geom.xc == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors)):
+        return 16
+    if (geom.xc % 2 == 0 and geom.cols % 2 == 0
+            and all(t.data_ptr() % 8 == 0 for t in tensors)):
+        return 8
+    return 4
 
 
 def _coeff_args(k: DecayCoeffs, eps: float):
@@ -183,10 +192,24 @@ def fused_row_update_kernel(zij, eij, pij, wij, tij, zi, ei, pi, ti, rows,
     16-byte segment of 4 cells (float4 / int4), so a row of C <= 128 cells
     is one step of loads with no dependent iteration; on the flat layout a
     row is C/4 contiguous segments, on an (xr, 4) tile C/4 segments
-    xr*16 bytes apart. Where a row does not split into whole 4-cell
-    segments (a tile such as (7, 5)), the lanes walk single cells. The
-    TPU's (8, 128) tiles, junk row and per-call `_pad2` copies of the planes
-    are gone (masking is a bounds check on the row index).
+    xr*16 bytes apart. Where a row splits into 2-cell segments but not
+    into 4-cell ones (flat C = 70, the rodent cortex, whose 280-byte rows
+    start 16-byte aligned every other row), a contiguous row is cut at the
+    16-byte boundaries of its addresses: a lane takes a chunk of 4 cells
+    (one float4 / int4 access per operand where that operand is 16-byte
+    aligned there, else two 8-byte ones) or the 2-cell head or tail, and
+    issues all its loads before its math, in one step for C <= 126; a row
+    of several tiles (an (xr, 2) tile) or of more cells gives a lane two
+    8-byte segments 64 columns apart. Where it does not (an odd C, a tile
+    such as (7, 5)), the lanes walk single cells. `_row_segment_bytes`
+    picks the width from the geometry and the pointers; `row_walks` counts
+    launches by it. On the H100 the rodent kernel (448,000 live of
+    1,408,000 slots) went from 1.128 to 0.965 ms against a 0.482 ms
+    sector bound; a walk of 8 bytes a lane with its arithmetic taken out
+    still ran 1.00 ms, so the memory system's pace on scattered 280-byte
+    rows sets the rest. The TPU's
+    (8, 128) tiles, junk row and per-call `_pad2` copies of the planes are
+    gone (masking is a bounds check on the row index).
 
     Planes (stored in ``layout``) and i-vectors (H*R,) are rewritten in
     place. rows (W,) int32, now an int32 one-element tensor (read on the
@@ -214,12 +237,13 @@ def fused_row_update_kernel(zij, eij, pij, wij, tij, zi, ei, pi, ti, rows,
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [t.data_ptr() for t in (*planes, *ivecs, rows, now, counts, zj,
                                    p_i, pj, zi_new, ei_new, pi_new, wrow)]
-    vec = _vec_rows(geom, (*planes, zj, pj, wrow))
+    seg = _row_segment_bytes(geom, (*planes, zj, pj, wrow))
     rc = _lib().bcpnn_fused_row_update(*ptrs, W, W // H, n * geom.rows,
-                                       *_tiling_args(geom), vec,
+                                       *_tiling_args(geom), seg,
                                        *_coeff_args(coeffs, eps), stream)
     _raise_on(rc, "fused_row_update")
     launches["fused_row_update"] += 1
+    row_walks[seg] += 1
     return wrow
 
 
@@ -401,7 +425,7 @@ def worklist_row_update_kernel(zij, eij, pij, wij, tij, g_row, order, nv,
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [t.data_ptr() for t in (*planes, g_row, order, nv, now, counts,
                                    zj, p_i, pj)]
-    vec = _vec_rows(geom, (*planes, zj, pj))
+    vec = int(_row_segment_bytes(geom, (*planes, zj, pj)) == 16)
     rc = _lib().bcpnn_worklist_row_update(*ptrs, W, W // H, n * geom.rows,
                                           *_tiling_args(geom), vec,
                                           *_coeff_args(coeffs, eps), stream)

@@ -34,10 +34,21 @@
 // fetched. A row is C contiguous cells (flat) or C/xc segments of xc cells
 // (blocked); the row kernels give one lane a 16-byte segment of 4 cells
 // and one warp a row (the unfused one two rows, whose loads it issues
-// before either row's math), so a row's loads are issued at once. A
-// column is R cells C*4 bytes apart (flat: one 32-byte sector a cell) or
-// R/xr runs of xr cells xc*4 bytes apart (blocked (xr, 4): one sector per
-// two cells, in contiguous xr*16-byte runs); the column kernel puts a warp's lanes on
+// before either row's math), so a row's loads are issued at once. A row
+// that splits into 2-cell segments but not into 4-cell ones (the rodent
+// cortex's flat C = 70: a 280-byte row starts on an 8-byte boundary, every
+// other one on a 16-byte one) is cut at the 16-byte boundaries of its own
+// addresses instead: 4-cell chunks and a 2-cell head or tail, one chunk a
+// lane, all of a row's loads issued before its math (the fused kernel;
+// tiles of 2-cell segments and rows over 126 cells take 8 bytes a lane).
+// On the H100 that took the rodent row kernel from 1.128 to 0.965 ms
+// (sector bound 0.482): a walk of 8 bytes a lane with the arithmetic
+// taken out still ran 1.00 ms, so the memory system's pace on these
+// scattered 280-byte rows, and not the dependent rounds of single cells,
+// sets the rest; fewer, wider requests are what helped. A column is R
+// cells C*4 bytes apart (flat: one 32-byte sector a cell) or R/xr runs of
+// xr cells xc*4 bytes apart (blocked (xr, 4): one sector per two cells, in
+// contiguous xr*16-byte runs); the column kernel puts a warp's lanes on
 // neighbouring rows, one row a thread: on the H100 that beat several rows a
 // thread with all their loads issued first, and streaming cache hints
 // (ld/st.global.cs) made neither kernel faster. DRAM moves 64-byte bursts,
@@ -107,21 +118,128 @@ constexpr int kRowWarps = 8;        // worklist slots per block (one warp each)
 constexpr int kColThreads = 256;    // column rows per block
 constexpr int kBlockThreads = 256;  // cells per block of the block kernels
 
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
+}
+
+// The cells [c0, c0 + n) of a contiguous row of C cells whose chunks start
+// at its 16-byte boundaries (ph cells before the row's start): chunk q
+// holds the columns 4q - ph up to 4q - ph + 4, cut to the row, 4 cells or,
+// at the row's head or tail, 2; n = 0 past the row.
+__device__ __forceinline__ void chunk_cols(int q, int ph, int C, int& c0,
+                                           int& n) {
+  const int lo = 4 * q - ph;
+  c0 = lo < 0 ? 0 : lo;
+  const int hi = lo + 4 < C ? lo + 4 : C;
+  n = hi > c0 ? hi - c0 : 0;
+}
+
+// The 8-byte walk of a contiguous row (base: its first cell, ph cells past
+// a 16-byte boundary) of C <= 126 cells, of planes that share their
+// alignment modulo 16 bytes: cut at the row's 16-byte boundaries, lane l
+// takes chunk l, 4 cells as one float4 / int4 access a plane or the 2-cell
+// head or tail as float2 / int2, all loads issued before the math. The
+// j-vector and weight rows keep their own alignment: a chunk of theirs that
+// is not 16-byte aligned goes as two 8-byte accesses. On the H100 this
+// straight-line form holds 46 registers; one branch around each load, or
+// a loop over rounds of 32 chunks, took 76-80 and ran as slowly as the
+// single-cell walk, so longer rows take the 8-byte pairs instead.
+__device__ __forceinline__ void chunk_walk(
+    float* __restrict__ zij, float* __restrict__ eij, float* __restrict__ pij,
+    float* __restrict__ wij, int* __restrict__ tij, long long base, int C,
+    int ph, int lane, const float* __restrict__ zj_row,
+    const float* __restrict__ pj_row, float cnt, float p_pre, int now,
+    const Coeffs& k, float* __restrict__ wrow_out) {
+  int c0, n;
+  chunk_cols(lane, ph, C, c0, n);
+  const long long i = base + c0;
+  float z[4], e[4], p[4], zj[4], pj[4];
+  int t[4];
+  if (n == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(zij + i);
+    const float4 b = *reinterpret_cast<const float4*>(eij + i);
+    const float4 c = *reinterpret_cast<const float4*>(pij + i);
+    const int4 d = *reinterpret_cast<const int4*>(tij + i);
+    z[0] = a.x; z[1] = a.y; z[2] = a.z; z[3] = a.w;
+    e[0] = b.x; e[1] = b.y; e[2] = b.z; e[3] = b.w;
+    p[0] = c.x; p[1] = c.y; p[2] = c.z; p[3] = c.w;
+    t[0] = d.x; t[1] = d.y; t[2] = d.z; t[3] = d.w;
+    if (aligned16(zj_row + c0) && aligned16(pj_row + c0)) {
+      const float4 x = *reinterpret_cast<const float4*>(zj_row + c0);
+      const float4 y = *reinterpret_cast<const float4*>(pj_row + c0);
+      zj[0] = x.x; zj[1] = x.y; zj[2] = x.z; zj[3] = x.w;
+      pj[0] = y.x; pj[1] = y.y; pj[2] = y.z; pj[3] = y.w;
+    } else {
+      const float2 x0 = *reinterpret_cast<const float2*>(zj_row + c0);
+      const float2 x1 = *reinterpret_cast<const float2*>(zj_row + c0 + 2);
+      const float2 y0 = *reinterpret_cast<const float2*>(pj_row + c0);
+      const float2 y1 = *reinterpret_cast<const float2*>(pj_row + c0 + 2);
+      zj[0] = x0.x; zj[1] = x0.y; zj[2] = x1.x; zj[3] = x1.y;
+      pj[0] = y0.x; pj[1] = y0.y; pj[2] = y1.x; pj[3] = y1.y;
+    }
+  } else if (n == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(zij + i);
+    const float2 b = *reinterpret_cast<const float2*>(eij + i);
+    const float2 c = *reinterpret_cast<const float2*>(pij + i);
+    const int2 d = *reinterpret_cast<const int2*>(tij + i);
+    const float2 x = *reinterpret_cast<const float2*>(zj_row + c0);
+    const float2 y = *reinterpret_cast<const float2*>(pj_row + c0);
+    z[0] = a.x; z[1] = a.y; e[0] = b.x; e[1] = b.y; p[0] = c.x; p[1] = c.y;
+    t[0] = d.x; t[1] = d.y; zj[0] = x.x; zj[1] = x.y; pj[0] = y.x;
+    pj[1] = y.y;
+  }
+  float z1[4], e1[4], p1[4], w1[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (q < n)
+      cell_math(z[q], e[q], p[q], (float)(now - t[q]), cnt * zj[q], p_pre,
+                pj[q], k, z1[q], e1[q], p1[q], w1[q]);
+  if (n == 4) {
+    *reinterpret_cast<float4*>(zij + i) = make_float4(z1[0], z1[1], z1[2], z1[3]);
+    *reinterpret_cast<float4*>(eij + i) = make_float4(e1[0], e1[1], e1[2], e1[3]);
+    *reinterpret_cast<float4*>(pij + i) = make_float4(p1[0], p1[1], p1[2], p1[3]);
+    *reinterpret_cast<float4*>(wij + i) = make_float4(w1[0], w1[1], w1[2], w1[3]);
+    *reinterpret_cast<int4*>(tij + i) = make_int4(now, now, now, now);
+    if (wrow_out == nullptr) {
+    } else if (aligned16(wrow_out + c0)) {
+      *reinterpret_cast<float4*>(wrow_out + c0) =
+          make_float4(w1[0], w1[1], w1[2], w1[3]);
+    } else {
+      *reinterpret_cast<float2*>(wrow_out + c0) = make_float2(w1[0], w1[1]);
+      *reinterpret_cast<float2*>(wrow_out + c0 + 2) =
+          make_float2(w1[2], w1[3]);
+    }
+  } else if (n == 2) {
+    *reinterpret_cast<float2*>(zij + i) = make_float2(z1[0], z1[1]);
+    *reinterpret_cast<float2*>(eij + i) = make_float2(e1[0], e1[1]);
+    *reinterpret_cast<float2*>(pij + i) = make_float2(p1[0], p1[1]);
+    *reinterpret_cast<float2*>(wij + i) = make_float2(w1[0], w1[1]);
+    *reinterpret_cast<int2*>(tij + i) = make_int2(now, now);
+    if (wrow_out != nullptr)
+      *reinterpret_cast<float2*>(wrow_out + c0) = make_float2(w1[0], w1[1]);
+  }
+}
+
 // One warp rewrites HCU h's logical row r in place: dz = cnt * zj_row[c],
 // p_pre, p_post = pj_row[c]; Tij = now. The weight row also goes to wrow_out
-// where that is not null. kVec (xc % 4 == 0, C % xc == 0, 16-byte aligned
-// pointers): lane l takes the 4-cell segment at column 4l, whose cells are
-// contiguous in the plane, as float4 / int4 loads and stores; C <= 128 is one
-// step of loads with no dependent iteration. Otherwise (a tile such as
-// (7, 5)) the lanes stride over single cells.
-template <bool kVec>
+// where that is not null. kSeg is the bytes of the segments the row splits
+// into (the wrapper's _row_segment_bytes). 16 (xc % 4 == 0, C % xc == 0,
+// 16-byte aligned pointers): lane l takes the 4-cell segment at column 4l,
+// whose cells are contiguous in the plane, as float4 / int4 loads and
+// stores; C <= 128 is one step of loads with no dependent iteration. 8 (xc
+// and C even, 8-byte aligned pointers): kChunks (one tile column, C <= 126,
+// planes alike modulo 16 bytes; the launch decides) takes chunk_walk; else
+// lane l takes the 2-cell segments at columns 2l and 2l + 64 of each
+// 128-column round as float2 / int2, both loaded before their math. 4 (a
+// tile such as (7, 5), an odd C): the lanes stride over single cells.
+template <int kSeg, bool kChunks>
 __device__ __forceinline__ void row_walk(
     float* __restrict__ zij, float* __restrict__ eij, float* __restrict__ pij,
     float* __restrict__ wij, int* __restrict__ tij, const Tiling& g,
     long long base, const float* __restrict__ zj_row,
     const float* __restrict__ pj_row, float cnt, float p_pre, int now,
     int lane, const Coeffs& k, float* __restrict__ wrow_out) {
-  if constexpr (kVec) {
+  if constexpr (kSeg == 16) {
     for (int c = 4 * lane; c < g.C; c += 128) {
       const long long i = base + col_off(g, c);
       const float4 z = *reinterpret_cast<const float4*>(zij + i);
@@ -146,6 +264,48 @@ __device__ __forceinline__ void row_walk(
       *reinterpret_cast<int4*>(tij + i) = make_int4(now, now, now, now);
       if (wrow_out != nullptr) *reinterpret_cast<float4*>(wrow_out + c) = w1;
     }
+  } else if constexpr (kSeg == 8 && kChunks) {
+    chunk_walk(zij, eij, pij, wij, tij, base, g.C,
+               (int)((reinterpret_cast<unsigned long long>(zij + base) >> 2) &
+                     3),
+               lane, zj_row, pj_row, cnt, p_pre, now, k, wrow_out);
+  } else if constexpr (kSeg == 8) {
+    for (int cb = 0; cb < g.C; cb += 128) {
+      float2 z[2], e[2], p[2], zj[2], pj[2];
+      int2 t[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int c = cb + 2 * lane + 64 * q;
+        if (c < g.C) {
+          const long long i = base + col_off(g, c);
+          z[q] = *reinterpret_cast<const float2*>(zij + i);
+          e[q] = *reinterpret_cast<const float2*>(eij + i);
+          p[q] = *reinterpret_cast<const float2*>(pij + i);
+          t[q] = *reinterpret_cast<const int2*>(tij + i);
+          zj[q] = *reinterpret_cast<const float2*>(zj_row + c);
+          pj[q] = *reinterpret_cast<const float2*>(pj_row + c);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int c = cb + 2 * lane + 64 * q;
+        if (c < g.C) {
+          const long long i = base + col_off(g, c);
+          float2 z1, e1, p1, w1;
+          cell_math(z[q].x, e[q].x, p[q].x, (float)(now - t[q].x),
+                    cnt * zj[q].x, p_pre, pj[q].x, k, z1.x, e1.x, p1.x, w1.x);
+          cell_math(z[q].y, e[q].y, p[q].y, (float)(now - t[q].y),
+                    cnt * zj[q].y, p_pre, pj[q].y, k, z1.y, e1.y, p1.y, w1.y);
+          *reinterpret_cast<float2*>(zij + i) = z1;
+          *reinterpret_cast<float2*>(eij + i) = e1;
+          *reinterpret_cast<float2*>(pij + i) = p1;
+          *reinterpret_cast<float2*>(wij + i) = w1;
+          *reinterpret_cast<int2*>(tij + i) = make_int2(now, now);
+          if (wrow_out != nullptr)
+            *reinterpret_cast<float2*>(wrow_out + c) = w1;
+        }
+      }
+    }
   } else {
     for (int c = lane; c < g.C; c += 32) {
       const long long i = base + col_off(g, c);
@@ -166,7 +326,7 @@ __device__ __forceinline__ void row_walk(
 // One warp per worklist slot (row_walk). Valid rows are unique network-wide,
 // so no two warps ever write the same row. Slot s belongs to HCU s / A: its
 // zj / pj are that HCU's (H, C) j-vector rows, read in place.
-template <bool kVec>
+template <int kSeg, bool kChunks = false>
 __global__ void __launch_bounds__(32 * kRowWarps)
 fused_row_kernel(float* __restrict__ zij, float* __restrict__ eij,
                  float* __restrict__ pij, float* __restrict__ wij,
@@ -187,9 +347,12 @@ fused_row_kernel(float* __restrict__ zij, float* __restrict__ eij,
   float* out = wrow + (long long)slot * g.C;
   const int gr = rows[slot];
   if (gr < 0 || gr >= HR) {  // sentinel slot: no plane write, zero weight row
-    if constexpr (kVec) {
+    if constexpr (kSeg == 16) {
       for (int c = 4 * lane; c < g.C; c += 128)
         *reinterpret_cast<float4*>(out + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else if constexpr (kSeg == 8) {
+      for (int c = 2 * lane; c < g.C; c += 64)
+        *reinterpret_cast<float2*>(out + c) = make_float2(0.f, 0.f);
     } else {
       for (int c = lane; c < g.C; c += 32) out[c] = 0.0f;
     }
@@ -197,8 +360,9 @@ fused_row_kernel(float* __restrict__ zij, float* __restrict__ eij,
   }
   const int now = *now_p;
   const long long hj = (long long)(slot / A) * g.C;
-  row_walk<kVec>(zij, eij, pij, wij, tij, g, row_off(g, gr / g.R, gr % g.R),
-                 zj + hj, pj + hj, counts[slot], p_i[slot], now, lane, k, out);
+  row_walk<kSeg, kChunks>(zij, eij, pij, wij, tij, g,
+                          row_off(g, gr / g.R, gr % g.R), zj + hj, pj + hj,
+                          counts[slot], p_i[slot], now, lane, k, out);
   if (lane == 0) {
     zi[gr] = zi_new[slot];
     ei[gr] = ei_new[slot];
@@ -524,14 +688,26 @@ extern "C" int bcpnn_fused_row_update(
     const float* counts, const float* zj, const float* p_i, const float* pj,
     const float* zi_new, const float* ei_new, const float* pi_new,
     float* wrow, int W, int A, long long HR, int R, int C, int xr, int xc,
-    int Tr, int Tc, int vec, float inv_tau_z, float inv_tau_e,
+    int Tr, int Tc, int seg, float inv_tau_z, float inv_tau_e,
     float inv_tau_p, float c_ze, float c_ep, float c_zp, float eps,
     float eps2, void* stream) {
   const Coeffs k{inv_tau_z, inv_tau_e, inv_tau_p, c_ze, c_ep, c_zp, eps, eps2};
   const Tiling g{R, C, xr, xc, Tr, Tc};
   const dim3 block(32, kRowWarps);
   const dim3 grid((W + kRowWarps - 1) / kRowWarps);
-  auto kernel = vec ? fused_row_kernel<true> : fused_row_kernel<false>;
+  // 8-byte rows cut into 16-byte chunks in one step: one tile column, at
+  // most 32 chunks (C <= 126), planes that share their alignment modulo 16
+  const unsigned long long a = reinterpret_cast<unsigned long long>(zij);
+  const bool chunks =
+      seg == 8 && Tc == 1 && C <= 126 &&
+      ((a ^ reinterpret_cast<unsigned long long>(eij)) |
+       (a ^ reinterpret_cast<unsigned long long>(pij)) |
+       (a ^ reinterpret_cast<unsigned long long>(wij)) |
+       (a ^ reinterpret_cast<unsigned long long>(tij))) % 16 == 0;
+  auto kernel = seg == 16 ? fused_row_kernel<16>
+                : chunks  ? fused_row_kernel<8, true>
+                : seg == 8 ? fused_row_kernel<8>
+                           : fused_row_kernel<4>;
   kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       zij, eij, pij, wij, tij, zi, ei, pi, ti, rows, now, counts, zj, p_i, pj,
       zi_new, ei_new, pi_new, wrow, W, A, HR, g, k);

@@ -349,8 +349,20 @@ def _loaded(a, lay, names):
             else a[f] for f in names}
 
 
-def run_row(d, device="cpu", fn=None, lay=None):
+def _shifted(t, floats):
+    """A copy of t whose data starts ``floats`` 4-byte words past an
+    allocation's (aligned) start."""
+    buf = torch.empty(t.numel() + floats, dtype=t.dtype, device=t.device)
+    out = buf[floats:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def run_row(d, device="cpu", fn=None, lay=None, shift=()):
+    """The fused row phase on ``d``; the operands named in ``shift`` start
+    8 bytes past an aligned address."""
     a = _stored(d, device, lay)
+    a.update({f: _shifted(a[f], 2) for f in shift})
     p = BCPNNParams()
     wrow = (fn or ops.fused_row_update)(
         *(a[f] for f in ROW_PLANES), a["rows"], torch.tensor(NOW, dtype=torch.int32, device=device),
@@ -546,6 +558,34 @@ def test_unfused_rows_equal_fused_rows_bit_for_bit(tile):
     assert not torch.equal(out[False][4], base.tij)   # rows were written
 
 
+# (layout: ("flat", C) or an (xr, xc) tile at R=64, C=16; the byte offset
+# of one operand from an aligned address; the segment the row walk takes)
+SEGMENTS = [(("flat", 70), 0, 8), (("flat", 100), 0, 16),
+            (("flat", 71), 0, 4), (("flat", 16), 0, 16),
+            (("flat", 200), 0, 16), ((8, 4), 0, 16), ((7, 5), 0, 4),
+            ((8, 2), 0, 8), (("flat", 70), 4, 4), (("flat", 100), 4, 4),
+            (("flat", 100), 8, 8), ((8, 4), 8, 8)]
+
+
+@pytest.mark.parametrize(
+    "lay, offset, want", SEGMENTS,
+    ids=lambda v: (f"{v[0]}{v[1]}" if isinstance(v, tuple) else str(v)))
+def test_row_segment_bytes_follows_geometry_and_alignment(lay, offset, want):
+    """The row kernels' segment width: 16 bytes where tiles and rows split
+    into 4-cell segments and every operand is 16-byte aligned, 8 where they
+    split into 2-cell segments and every operand is 8-byte aligned, else 4;
+    one misaligned operand narrows the walk of the whole launch."""
+    from repro_torch.core.layout import BlockedLayout, FlatLayout
+    geom = (FlatLayout(64, lay[1]) if lay[0] == "flat"
+            else BlockedLayout(64, 16, *lay))
+    n = 64 * geom.cols
+    ops = [torch.zeros(n) for _ in range(3)]
+    base = torch.zeros(n + 4)
+    assert all(t.data_ptr() % 16 == 0 for t in (*ops, base))
+    ops.append(base[offset // 4:offset // 4 + n])
+    assert BU._row_segment_bytes(geom, ops) == want
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -564,6 +604,70 @@ def test_cuda_row_kernel_matches_plain(dims):
     want = run_row(d, dev, BU.fused_row_update_plain)
     assert_outputs(got, {k: v.cpu().numpy() for k, v in want.items()},
                    (*ROW_PLANES, "wrow"))
+
+
+def _sentinel_hcu(d, h, A, HR):
+    """HCU h's slots all sentinel: no row, count or weight row."""
+    d["rows"][h * A:(h + 1) * A] = HR
+    d["counts"][h * A:(h + 1) * A] = 0.0
+    return d
+
+
+def _both_phases(d, n, R, A):
+    """HCU 0's live slots on rows 0, 1, 2, 5 and HCU 1's on rows R - 2,
+    R - 1 (the plane's last row when n == 2): rows that start on a 16-byte
+    boundary and rows that start 8 bytes past one, where C * 4 is 8 modulo
+    16."""
+    for h, rs in ((0, (0, 1, 2, 5)), (1, (R - 2, R - 1))):
+        d["rows"][h * A:(h + 1) * A] = n * R
+        d["rows"][h * A:h * A + len(rs)] = [h * R + r for r in rs]
+        d["counts"][h * A:(h + 1) * A] = 0.0
+        d["counts"][h * A:h * A + len(rs)] = 2.0
+    return d
+
+
+# (dims, tile, how the worklist is edited, the operands shifted by 8 bytes,
+# the segment bytes the walk takes)
+ROW_WALKS = {
+    "c70-phases": (dict(n=2, R=40, C=70, A=8), None, _both_phases, (), 8),
+    "c70-sentinel-hcu": (dict(n=3, R=40, C=70, A=8), None,
+                         lambda d, n, R, A: _sentinel_hcu(d, 1, A, n * R),
+                         (), 8),
+    "c66": (dict(n=3, R=40, C=66, A=8), None, None, (), 8),
+    "c198": (dict(n=2, R=40, C=198, A=8), None, _both_phases, (), 8),
+    "c71": (dict(n=3, R=40, C=71, A=8), None, None, (), 4),
+    "tile8x2": (dict(n=3, R=40, C=16, A=8), (8, 2), None, (), 8),
+    "c100-zj-shifted": (dict(n=3, R=40, C=100, A=8), None, _both_phases,
+                        ("zj",), 8),
+    "c100-plane-shifted": (dict(n=3, R=40, C=100, A=8), None, _both_phases,
+                           ("eij",), 8),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ROW_WALKS))
+def test_cuda_row_kernel_walks_match_plain(case):
+    """The fused row kernel bit for bit its plain version on rows that take
+    the 8-byte walk (C = 70 with live rows in both 16-byte phases and the
+    plane's last row; an HCU of sentinel slots only; C = 66; C = 198, two
+    rounds of 128 columns; an (8, 2) tile; C = 100 with Zj, then with one
+    plane, 8 bytes off the 16-byte alignment of the others) and the
+    single-cell walk (C = 71), with `row_walks` counting the launch under
+    its width."""
+    dev = _cuda()
+    dims, tile, edit, shift, seg = ROW_WALKS[case]
+    n, R, C, A = (dims[k] for k in ("n", "R", "C", "A"))
+    d = row_inputs(24, n, R, C, A)
+    if edit is not None:
+        d = edit(d, n, R, A)
+    lay = None if tile is None else _blocked(dims, tile)
+    before = dict(BU.row_walks)
+    got = run_row(d, dev, BU.fused_row_update_kernel, lay=lay, shift=shift)
+    torch.cuda.synchronize()
+    assert BU.row_walks == {k: v + (k == seg) for k, v in before.items()}
+    want = run_row(d, dev, BU.fused_row_update_plain, lay=lay)
+    for f in (*ROW_PLANES, "wrow"):
+        assert torch.equal(got[f], want[f]), f
 
 
 @pytest.mark.cuda
