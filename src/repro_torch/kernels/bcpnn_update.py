@@ -137,17 +137,25 @@ def _tiling_args(geom):
             geom.col_tiles_n)
 
 
-def _row_segment_bytes(geom, tensors) -> int:
-    """The widest segment of a row that one lane of the row kernels loads
-    at once: 16 bytes (4 cells) for whole tiles of a multiple of 4 cells
-    in a row (no padded columns) and 16-byte aligned operands; else 8
-    bytes (2 cells) where tiles and rows are a whole number of 2-cell
-    segments and the operands 8-byte aligned; else 4 (cell by cell)."""
+def _row_segment_bytes(geom, planes, vecs) -> int:
+    """The segment of a row that one lane of the row kernels loads at once:
+    16 bytes (4 cells) for whole tiles of a multiple of 4 cells in a row
+    (no padded columns) and 16-byte aligned operands; else 8 bytes (2
+    cells) where a row is one contiguous run (one tile column) of an even
+    C <= 126, every operand is 8-byte aligned and the planes share their
+    alignment modulo 16 bytes, so that the fused row kernel can cut the row
+    at its own 16-byte boundaries into at most 32 chunks; else 4 (cell by
+    cell). ``planes`` are the five stored planes, ``vecs`` the other
+    operands a row reads or writes (j-vectors, weight rows)."""
+    ops = (*planes, *vecs)
     if (geom.xc % 4 == 0 and geom.cols % geom.xc == 0
-            and all(t.data_ptr() % 16 == 0 for t in tensors)):
+            and all(t.data_ptr() % 16 == 0 for t in ops)):
         return 16
-    if (geom.xc % 2 == 0 and geom.cols % 2 == 0
-            and all(t.data_ptr() % 8 == 0 for t in tensors)):
+    a = planes[0].data_ptr()
+    if (geom.col_tiles_n == 1 and geom.xc % 2 == 0 and geom.cols % 2 == 0
+            and geom.cols <= 126
+            and all(t.data_ptr() % 8 == 0 for t in ops)
+            and all((t.data_ptr() - a) % 16 == 0 for t in planes)):
         return 8
     return 4
 
@@ -198,18 +206,16 @@ def fused_row_update_kernel(zij, eij, pij, wij, tij, zi, ei, pi, ti, rows,
     16-byte boundaries of its addresses: a lane takes a chunk of 4 cells
     (one float4 / int4 access per operand where that operand is 16-byte
     aligned there, else two 8-byte ones) or the 2-cell head or tail, and
-    issues all its loads before its math, in one step for C <= 126; a row
-    of several tiles (an (xr, 2) tile) or of more cells gives a lane two
-    8-byte segments 64 columns apart. Where it does not (an odd C, a tile
-    such as (7, 5)), the lanes walk single cells. `_row_segment_bytes`
-    picks the width from the geometry and the pointers; `row_walks` counts
-    launches by it. On the H100 the rodent kernel (448,000 live of
+    issues all its loads before its math, in one step for C <= 126. Other
+    rows (an odd C, C > 126, a tile such as (7, 5) or (8, 2)) walk single
+    cells. `_row_segment_bytes` picks the width from the geometry and the
+    pointers; `row_walks` counts launches by it. On the H100 the rodent kernel (448,000 live of
     1,408,000 slots) went from 1.128 to 0.965 ms against a 0.482 ms
     sector bound; a walk of 8 bytes a lane with its arithmetic taken out
     still ran 1.00 ms, so the memory system's pace on scattered 280-byte
-    rows sets the rest. The TPU's
-    (8, 128) tiles, junk row and per-call `_pad2` copies of the planes are
-    gone (masking is a bounds check on the row index).
+    rows sets the rest. The TPU's (8, 128) tiles, junk row and per-call
+    `_pad2` copies of the planes are gone (masking is a bounds check on the
+    row index).
 
     Planes (stored in ``layout``) and i-vectors (H*R,) are rewritten in
     place. rows (W,) int32, now an int32 one-element tensor (read on the
@@ -237,7 +243,7 @@ def fused_row_update_kernel(zij, eij, pij, wij, tij, zi, ei, pi, ti, rows,
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [t.data_ptr() for t in (*planes, *ivecs, rows, now, counts, zj,
                                    p_i, pj, zi_new, ei_new, pi_new, wrow)]
-    seg = _row_segment_bytes(geom, (*planes, zj, pj, wrow))
+    seg = _row_segment_bytes(geom, planes, (zj, pj, wrow))
     rc = _lib().bcpnn_fused_row_update(*ptrs, W, W // H, n * geom.rows,
                                        *_tiling_args(geom), seg,
                                        *_coeff_args(coeffs, eps), stream)
@@ -425,7 +431,7 @@ def worklist_row_update_kernel(zij, eij, pij, wij, tij, g_row, order, nv,
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [t.data_ptr() for t in (*planes, g_row, order, nv, now, counts,
                                    zj, p_i, pj)]
-    vec = int(_row_segment_bytes(geom, (*planes, zj, pj)) == 16)
+    vec = int(_row_segment_bytes(geom, planes, (zj, pj)) == 16)
     rc = _lib().bcpnn_worklist_row_update(*ptrs, W, W // H, n * geom.rows,
                                           *_tiling_args(geom), vec,
                                           *_coeff_args(coeffs, eps), stream)

@@ -34,18 +34,18 @@
 // fetched. A row is C contiguous cells (flat) or C/xc segments of xc cells
 // (blocked); the row kernels give one lane a 16-byte segment of 4 cells
 // and one warp a row (the unfused one two rows, whose loads it issues
-// before either row's math), so a row's loads are issued at once. A row
-// that splits into 2-cell segments but not into 4-cell ones (the rodent
-// cortex's flat C = 70: a 280-byte row starts on an 8-byte boundary, every
-// other one on a 16-byte one) is cut at the 16-byte boundaries of its own
-// addresses instead: 4-cell chunks and a 2-cell head or tail, one chunk a
-// lane, all of a row's loads issued before its math (the fused kernel;
-// tiles of 2-cell segments and rows over 126 cells take 8 bytes a lane).
-// On the H100 that took the rodent row kernel from 1.128 to 0.965 ms
-// (sector bound 0.482): a walk of 8 bytes a lane with the arithmetic
-// taken out still ran 1.00 ms, so the memory system's pace on these
-// scattered 280-byte rows, and not the dependent rounds of single cells,
-// sets the rest; fewer, wider requests are what helped. A column is R
+// before either row's math), so a row's loads are issued at once. A
+// contiguous row of an even C <= 126 that does not split into 4-cell
+// segments (the rodent cortex's flat C = 70: a 280-byte row starts on an
+// 8-byte boundary, every other one on a 16-byte one) is cut at the 16-byte
+// boundaries of its own addresses instead: 4-cell chunks and a 2-cell head
+// or tail, one chunk a lane, all of a row's loads issued before its math
+// (the fused kernel; other rows walk single cells). On the H100 that took
+// the rodent row kernel from 1.128 to 0.965 ms (sector bound 0.482): a
+// walk of 8 bytes a lane with the arithmetic taken out still ran 1.00 ms,
+// so the memory system's pace on these scattered 280-byte rows, and not
+// the dependent rounds of single cells, sets the rest; fewer, wider
+// requests are what helped. A column is R
 // cells C*4 bytes apart (flat: one 32-byte sector a cell) or R/xr runs of
 // xr cells xc*4 bytes apart (blocked (xr, 4): one sector per two cells, in
 // contiguous xr*16-byte runs); the column kernel puts a warp's lanes on
@@ -141,9 +141,9 @@ __device__ __forceinline__ void chunk_cols(int q, int ph, int C, int& c0,
 // head or tail as float2 / int2, all loads issued before the math. The
 // j-vector and weight rows keep their own alignment: a chunk of theirs that
 // is not 16-byte aligned goes as two 8-byte accesses. On the H100 this
-// straight-line form holds 46 registers; one branch around each load, or
-// a loop over rounds of 32 chunks, took 76-80 and ran as slowly as the
-// single-cell walk, so longer rows take the 8-byte pairs instead.
+// straight-line form ran 0.965 ms at rodent shapes; one branch around each
+// load, or a loop over rounds of 32 chunks, took 76-80 registers and ran
+// as slowly as the single-cell walk, so longer rows walk single cells.
 __device__ __forceinline__ void chunk_walk(
     float* __restrict__ zij, float* __restrict__ eij, float* __restrict__ pij,
     float* __restrict__ wij, int* __restrict__ tij, long long base, int C,
@@ -226,13 +226,11 @@ __device__ __forceinline__ void chunk_walk(
 // into (the wrapper's _row_segment_bytes). 16 (xc % 4 == 0, C % xc == 0,
 // 16-byte aligned pointers): lane l takes the 4-cell segment at column 4l,
 // whose cells are contiguous in the plane, as float4 / int4 loads and
-// stores; C <= 128 is one step of loads with no dependent iteration. 8 (xc
-// and C even, 8-byte aligned pointers): kChunks (one tile column, C <= 126,
-// planes alike modulo 16 bytes; the launch decides) takes chunk_walk; else
-// lane l takes the 2-cell segments at columns 2l and 2l + 64 of each
-// 128-column round as float2 / int2, both loaded before their math. 4 (a
-// tile such as (7, 5), an odd C): the lanes stride over single cells.
-template <int kSeg, bool kChunks>
+// stores; C <= 128 is one step of loads with no dependent iteration. 8 (a
+// contiguous row of an even C <= 126, 8-byte aligned pointers, planes alike
+// modulo 16 bytes): chunk_walk. 4 (a tile such as (7, 5) or (8, 2), an odd
+// C, C > 126): the lanes stride over single cells.
+template <int kSeg>
 __device__ __forceinline__ void row_walk(
     float* __restrict__ zij, float* __restrict__ eij, float* __restrict__ pij,
     float* __restrict__ wij, int* __restrict__ tij, const Tiling& g,
@@ -264,48 +262,11 @@ __device__ __forceinline__ void row_walk(
       *reinterpret_cast<int4*>(tij + i) = make_int4(now, now, now, now);
       if (wrow_out != nullptr) *reinterpret_cast<float4*>(wrow_out + c) = w1;
     }
-  } else if constexpr (kSeg == 8 && kChunks) {
+  } else if constexpr (kSeg == 8) {
     chunk_walk(zij, eij, pij, wij, tij, base, g.C,
                (int)((reinterpret_cast<unsigned long long>(zij + base) >> 2) &
                      3),
                lane, zj_row, pj_row, cnt, p_pre, now, k, wrow_out);
-  } else if constexpr (kSeg == 8) {
-    for (int cb = 0; cb < g.C; cb += 128) {
-      float2 z[2], e[2], p[2], zj[2], pj[2];
-      int2 t[2];
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int c = cb + 2 * lane + 64 * q;
-        if (c < g.C) {
-          const long long i = base + col_off(g, c);
-          z[q] = *reinterpret_cast<const float2*>(zij + i);
-          e[q] = *reinterpret_cast<const float2*>(eij + i);
-          p[q] = *reinterpret_cast<const float2*>(pij + i);
-          t[q] = *reinterpret_cast<const int2*>(tij + i);
-          zj[q] = *reinterpret_cast<const float2*>(zj_row + c);
-          pj[q] = *reinterpret_cast<const float2*>(pj_row + c);
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int c = cb + 2 * lane + 64 * q;
-        if (c < g.C) {
-          const long long i = base + col_off(g, c);
-          float2 z1, e1, p1, w1;
-          cell_math(z[q].x, e[q].x, p[q].x, (float)(now - t[q].x),
-                    cnt * zj[q].x, p_pre, pj[q].x, k, z1.x, e1.x, p1.x, w1.x);
-          cell_math(z[q].y, e[q].y, p[q].y, (float)(now - t[q].y),
-                    cnt * zj[q].y, p_pre, pj[q].y, k, z1.y, e1.y, p1.y, w1.y);
-          *reinterpret_cast<float2*>(zij + i) = z1;
-          *reinterpret_cast<float2*>(eij + i) = e1;
-          *reinterpret_cast<float2*>(pij + i) = p1;
-          *reinterpret_cast<float2*>(wij + i) = w1;
-          *reinterpret_cast<int2*>(tij + i) = make_int2(now, now);
-          if (wrow_out != nullptr)
-            *reinterpret_cast<float2*>(wrow_out + c) = w1;
-        }
-      }
-    }
   } else {
     for (int c = lane; c < g.C; c += 32) {
       const long long i = base + col_off(g, c);
@@ -326,7 +287,7 @@ __device__ __forceinline__ void row_walk(
 // One warp per worklist slot (row_walk). Valid rows are unique network-wide,
 // so no two warps ever write the same row. Slot s belongs to HCU s / A: its
 // zj / pj are that HCU's (H, C) j-vector rows, read in place.
-template <int kSeg, bool kChunks = false>
+template <int kSeg>
 __global__ void __launch_bounds__(32 * kRowWarps)
 fused_row_kernel(float* __restrict__ zij, float* __restrict__ eij,
                  float* __restrict__ pij, float* __restrict__ wij,
@@ -360,9 +321,8 @@ fused_row_kernel(float* __restrict__ zij, float* __restrict__ eij,
   }
   const int now = *now_p;
   const long long hj = (long long)(slot / A) * g.C;
-  row_walk<kSeg, kChunks>(zij, eij, pij, wij, tij, g,
-                          row_off(g, gr / g.R, gr % g.R), zj + hj, pj + hj,
-                          counts[slot], p_i[slot], now, lane, k, out);
+  row_walk<kSeg>(zij, eij, pij, wij, tij, g, row_off(g, gr / g.R, gr % g.R),
+                 zj + hj, pj + hj, counts[slot], p_i[slot], now, lane, k, out);
   if (lane == 0) {
     zi[gr] = zi_new[slot];
     ei[gr] = ei_new[slot];
@@ -695,17 +655,7 @@ extern "C" int bcpnn_fused_row_update(
   const Tiling g{R, C, xr, xc, Tr, Tc};
   const dim3 block(32, kRowWarps);
   const dim3 grid((W + kRowWarps - 1) / kRowWarps);
-  // 8-byte rows cut into 16-byte chunks in one step: one tile column, at
-  // most 32 chunks (C <= 126), planes that share their alignment modulo 16
-  const unsigned long long a = reinterpret_cast<unsigned long long>(zij);
-  const bool chunks =
-      seg == 8 && Tc == 1 && C <= 126 &&
-      ((a ^ reinterpret_cast<unsigned long long>(eij)) |
-       (a ^ reinterpret_cast<unsigned long long>(pij)) |
-       (a ^ reinterpret_cast<unsigned long long>(wij)) |
-       (a ^ reinterpret_cast<unsigned long long>(tij))) % 16 == 0;
-  auto kernel = seg == 16 ? fused_row_kernel<16>
-                : chunks  ? fused_row_kernel<8, true>
+  auto kernel = seg == 16  ? fused_row_kernel<16>
                 : seg == 8 ? fused_row_kernel<8>
                            : fused_row_kernel<4>;
   kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(

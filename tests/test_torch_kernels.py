@@ -558,32 +558,44 @@ def test_unfused_rows_equal_fused_rows_bit_for_bit(tile):
     assert not torch.equal(out[False][4], base.tij)   # rows were written
 
 
-# (layout: ("flat", C) or an (xr, xc) tile at R=64, C=16; the byte offset
-# of one operand from an aligned address; the segment the row walk takes)
-SEGMENTS = [(("flat", 70), 0, 8), (("flat", 100), 0, 16),
-            (("flat", 71), 0, 4), (("flat", 16), 0, 16),
-            (("flat", 200), 0, 16), ((8, 4), 0, 16), ((7, 5), 0, 4),
-            ((8, 2), 0, 8), (("flat", 70), 4, 4), (("flat", 100), 4, 4),
-            (("flat", 100), 8, 8), ((8, 4), 8, 8)]
+# (layout: ("flat", C) or an (xr, xc) tile at R=64, C=16; the operands
+# moved off an aligned address ("zj": a j-vector, "eij": one plane,
+# "planes": all five) and by how many bytes; the segment the walk takes)
+SEGMENTS = [(("flat", 70), "zj", 0, 8), (("flat", 100), "zj", 0, 16),
+            (("flat", 71), "zj", 0, 4), (("flat", 16), "zj", 0, 16),
+            (("flat", 200), "zj", 0, 16), ((8, 4), "zj", 0, 16),
+            ((7, 5), "zj", 0, 4), ((8, 2), "zj", 0, 4),
+            (("flat", 70), "zj", 4, 4), (("flat", 100), "zj", 4, 4),
+            (("flat", 100), "zj", 8, 8), ((8, 4), "zj", 8, 4),
+            (("flat", 100), "eij", 8, 4), (("flat", 70), "planes", 8, 8),
+            (("flat", 126), "zj", 0, 8), (("flat", 198), "zj", 0, 4)]
 
 
 @pytest.mark.parametrize(
-    "lay, offset, want", SEGMENTS,
+    "lay, moved, offset, want", SEGMENTS,
     ids=lambda v: (f"{v[0]}{v[1]}" if isinstance(v, tuple) else str(v)))
-def test_row_segment_bytes_follows_geometry_and_alignment(lay, offset, want):
+def test_row_segment_bytes_follows_geometry_and_alignment(lay, moved, offset,
+                                                          want):
     """The row kernels' segment width: 16 bytes where tiles and rows split
-    into 4-cell segments and every operand is 16-byte aligned, 8 where they
-    split into 2-cell segments and every operand is 8-byte aligned, else 4;
-    one misaligned operand narrows the walk of the whole launch."""
+    into 4-cell segments and every operand is 16-byte aligned; 8 where a
+    row is one contiguous run of an even C <= 126, every operand is 8-byte
+    aligned and the planes are alike modulo 16 bytes (an (8, 2) tile, C =
+    198 or one plane 8 bytes off the others take 4); else 4. One
+    misaligned operand narrows the walk of the whole launch."""
     from repro_torch.core.layout import BlockedLayout, FlatLayout
     geom = (FlatLayout(64, lay[1]) if lay[0] == "flat"
             else BlockedLayout(64, 16, *lay))
     n = 64 * geom.cols
-    ops = [torch.zeros(n) for _ in range(3)]
-    base = torch.zeros(n + 4)
-    assert all(t.data_ptr() % 16 == 0 for t in (*ops, base))
-    ops.append(base[offset // 4:offset // 4 + n])
-    assert BU._row_segment_bytes(geom, ops) == want
+
+    def operand(off):
+        t = torch.zeros(n + 4)
+        assert t.data_ptr() % 16 == 0
+        return t[off // 4:off // 4 + n]
+    planes = [operand(offset if moved == "planes" or (moved == "eij"
+                                                      and i == 1) else 0)
+              for i in range(5)]
+    vecs = [operand(offset if moved == "zj" else 0), operand(0)]
+    assert BU._row_segment_bytes(geom, planes, vecs) == want
 
 
 def _cuda():
@@ -634,13 +646,15 @@ ROW_WALKS = {
                          lambda d, n, R, A: _sentinel_hcu(d, 1, A, n * R),
                          (), 8),
     "c66": (dict(n=3, R=40, C=66, A=8), None, None, (), 8),
-    "c198": (dict(n=2, R=40, C=198, A=8), None, _both_phases, (), 8),
+    "c198": (dict(n=2, R=40, C=198, A=8), None, _both_phases, (), 4),
     "c71": (dict(n=3, R=40, C=71, A=8), None, None, (), 4),
-    "tile8x2": (dict(n=3, R=40, C=16, A=8), (8, 2), None, (), 8),
+    "tile8x2": (dict(n=3, R=40, C=16, A=8), (8, 2), None, (), 4),
     "c100-zj-shifted": (dict(n=3, R=40, C=100, A=8), None, _both_phases,
                         ("zj",), 8),
     "c100-plane-shifted": (dict(n=3, R=40, C=100, A=8), None, _both_phases,
-                           ("eij",), 8),
+                           ("eij",), 4),
+    "c70-planes-shifted": (dict(n=2, R=40, C=70, A=8), None, _both_phases,
+                           ROW_PLANES[:5], 8),
 }
 
 
@@ -649,11 +663,11 @@ ROW_WALKS = {
 def test_cuda_row_kernel_walks_match_plain(case):
     """The fused row kernel bit for bit its plain version on rows that take
     the 8-byte walk (C = 70 with live rows in both 16-byte phases and the
-    plane's last row; an HCU of sentinel slots only; C = 66; C = 198, two
-    rounds of 128 columns; an (8, 2) tile; C = 100 with Zj, then with one
-    plane, 8 bytes off the 16-byte alignment of the others) and the
-    single-cell walk (C = 71), with `row_walks` counting the launch under
-    its width."""
+    plane's last row, then with every plane 8 bytes off; an HCU of sentinel
+    slots only; C = 66; C = 100 with Zj 8 bytes off the 16-byte alignment
+    of the others) and the single-cell walk (C = 71; C = 198, over 126
+    cells; an (8, 2) tile; C = 100 with one plane 8 bytes off the others),
+    with `row_walks` counting the launch under its width."""
     dev = _cuda()
     dims, tile, edit, shift, seg = ROW_WALKS[case]
     n, R, C, A = (dims[k] for k in ("n", "R", "C", "A"))
